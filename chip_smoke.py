@@ -9,17 +9,31 @@ Phases, each of which raises on failure:
 
 1. environment: a CUDA device is required (there is no CPU path); prints
    the torch/CUDA versions and the card's name and power limit;
-2. build: compiles the hand-written compose kernel from
+2. build: compiles the hand-written kernel (compose and blend modes) from
    libmodjpeg_tpu_torch/csrc/ for sm_90a into build/torch_kernels/;
-3. kernel against its plain-torch version, on the card and on the CPU, at
-   the main path's shapes, with the +-1 / <0.5% bar and exact zero-mask
-   blocks; times both at 12,288 and 131,072 blocks;
+3. compose mode against its plain-torch version, on the card and on the
+   CPU, at the main path's shapes, with the +-1 / <0.5% bar and exact
+   zero-mask blocks; times both at 12,288 and 131,072 blocks;
+3b. blend mode against its plain-torch version, on the card and on the
+   CPU, with the TPU blend kernel's bar (rtol 1e-5, atol 1e-3), zero-mask
+   blocks exactly x1 and the opaque-mask case within 3e-2 of x0; times
+   both at 12,288 and 131,072 blocks;
 4. main path: BatchComposer.watermark_stream on 32 1920x1088 4:2:0 q85
    JPEGs with a 256x64 RGBA logo, through the band splice, the forced full
    path and the surgical splice (restart_interval=32); checks the paths
    taken, splice bytes == full bytes, untouched coefficients identical to
    the input, the footprint within +-1 of a device="cpu" run, and that
-   every batch launched the kernel once per component.
+   every batch launched the kernel once per component;
+5. the kernel bench (libmodjpeg_tpu_torch.scripts.kernel_bench) at its
+   default sizes, the path that runs the blend mode; checks that it
+   launched both modes;
+6. the modjpeg CLI (libmodjpeg_tpu_torch.cli) on a 3840x2160 4:2:0 q85
+   JPEG: effects, a JPEG dropon with its JPEG mask, a PNG dropon, two
+   outputs; once as it is and once with -X, on the card and with
+   device="cpu".  Checks exit codes, 3 compose launches per compose, the
+   pixels and coefficients of the card run against the CPU run (identical
+   outside the footprints, +-1 on under 0.5% inside), and byte-identical
+   -X outputs.
 
 Prints one JSON line describing the kernels, and as the last line
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
@@ -46,6 +60,10 @@ KERNEL_NS = (1, 7, 4099, 12288, 131072)
 TIMED_NS = (12288, 131072)
 TIMED_REPS = 50
 MAX_DIFF_SHARE = 0.005
+BLEND_RTOL, BLEND_ATOL = 1e-5, 1e-3   # tests/test_pallas.py:30
+CLI_W, CLI_H = 3840, 2160
+FIXTURES = os.path.join(REPO, "tests", "fixtures")
+WORK = os.path.join(REPO, "build", "chip_smoke")
 
 
 def log(msg):
@@ -169,6 +187,88 @@ def phase_kernel():
         gbs = n * 1024 / ((k1 + k2) / 2 * 1e-3) / 1e9
         log(f"time N={n}: kernel {k1:.4f}/{k2:.4f} ms, plain {p1:.4f}/"
             f"{p2:.4f} ms ({gbs:.1f} GB/s of kernel traffic)")
+    return max_err, times
+
+
+# -- phase 3b: blend mode vs its plain version ---------------------------------
+
+def _blend_inputs(rng, n):
+    x1 = (rng.randn(n, 64) * 300).astype(np.float32)
+    x0 = (rng.randn(n, 64) * 300).astype(np.float32)
+    m = (rng.rand(n, 64) * 0.9).astype(np.float32)
+    zero = np.arange(n) % 3 == 0   # one third of the blocks: zero mask
+    m[zero] = 0.0
+    return (x1, x0, m), zero
+
+
+def _blend_plain(x1, x0, m):
+    """blend_blocks_m on the kernel's [N, 64] operands."""
+    from libmodjpeg_tpu_torch.ops.compose import blend_blocks_m
+
+    n = x1.shape[0]
+    return blend_blocks_m(x1.view(n, 8, 8), x0.view(n, 8, 8),
+                          m.view(n, 8, 8)).view(n, 64)
+
+
+def _opaque_mask():
+    """The pixel mask of a fully opaque 8x8 alpha block (the opaque case of
+    tests/test_pallas.py), through the port's dropon-compile steps."""
+    from libmodjpeg_tpu_torch import composer
+    from libmodjpeg_tpu_torch.ops.compose import mask_pix_np
+
+    w = composer._alpha_to_weights(torch.full((8, 8), 255.0), 1, 1)
+    return mask_pix_np(w.numpy())[0, 0].reshape(64)
+
+
+def phase_blend():
+    from libmodjpeg_tpu_torch.ops import compose_kernel as ck
+
+    rng = np.random.RandomState(4321)
+    max_err = 0.0
+    for n in KERNEL_NS:
+        host, zero = _blend_inputs(rng, n)
+        cpu = [torch.from_numpy(a) for a in host]
+        dev = [t.cuda() for t in cpu]
+        got = ck.blend_blocks_cuda(*dev)
+        plain_dev = _blend_plain(*dev)
+        torch.cuda.synchronize()
+        got = got.cpu().numpy()
+        for name, ref in (("card", plain_dev.cpu().numpy()),
+                          ("cpu", _blend_plain(*cpu).numpy())):
+            err = float(np.abs(got - ref).max())
+            ok = np.allclose(got, ref, rtol=BLEND_RTOL, atol=BLEND_ATOL)
+            log(f"blend N={n} vs plain on {name}: max|d|={err:.6g} "
+                f"allclose(rtol={BLEND_RTOL}, atol={BLEND_ATOL})={ok}")
+            if not ok:
+                raise AssertionError(f"blend kernel disagrees at N={n} "
+                                     f"({name})")
+            max_err = max(max_err, err)
+        if not np.array_equal(got[zero], host[0][zero]):
+            raise AssertionError(f"blend: zero-mask blocks not x1 at N={n}")
+
+    n = 16
+    x1 = (rng.randn(n, 64) * 300).astype(np.float32)
+    x0 = (rng.randn(n, 64) * 300).astype(np.float32)
+    m = np.ascontiguousarray(np.broadcast_to(_opaque_mask(), (n, 64)))
+    out = ck.blend_blocks_cuda(*[torch.from_numpy(a).cuda()
+                                 for a in (x1, x0, m)]).cpu().numpy()
+    err = float(np.abs(out - x0).max())
+    if err > 3e-2:
+        raise AssertionError(f"blend: opaque mask off x0 by {err}")
+    log(f"blend: zero-mask blocks exact; opaque mask within {err:.3g} of x0")
+
+    times = {}
+    for n in TIMED_NS:
+        host, _ = _blend_inputs(rng, n)
+        dev = [torch.from_numpy(a).cuda() for a in host]
+        p1 = _time_ms(_blend_plain, dev, TIMED_REPS)
+        k1 = _time_ms(ck.blend_blocks_cuda, dev, TIMED_REPS)
+        k2 = _time_ms(ck.blend_blocks_cuda, dev, TIMED_REPS)
+        p2 = _time_ms(_blend_plain, dev, TIMED_REPS)
+        times[n] = ((k1 + k2) / 2, (p1 + p2) / 2)
+        gbs = n * 1024 / ((k1 + k2) / 2 * 1e-3) / 1e9
+        log(f"blend time N={n}: kernel {k1:.4f}/{k2:.4f} ms, plain "
+            f"{p1:.4f}/{p2:.4f} ms ({gbs:.1f} GB/s of kernel traffic)")
     return max_err, times
 
 
@@ -307,15 +407,150 @@ def phase_main_path(pool):
     return total_launches
 
 
+# -- phase 5: the kernel bench -------------------------------------------------
+
+def phase_kernel_bench():
+    from libmodjpeg_tpu_torch.ops import compose_kernel as ck
+    from libmodjpeg_tpu_torch.scripts import kernel_bench
+
+    torch.cuda.synchronize()
+    ck.launches = ck.blend_launches = 0
+    kernel_bench.main([])
+    launches = {"blend": ck.blend_launches, "compose": ck.launches}
+    log(f"kernel bench launches: {launches}")
+    if not all(launches.values()):
+        raise AssertionError("the kernel bench did not launch both modes")
+    return launches
+
+
+# -- phase 6: the CLI path ---------------------------------------------------
+
+def _cli_args(src, out_a, out_b, bitexact):
+    return (["-X"] if bitexact else []) + [
+        "-i", src, "-y", "12", "-b", "-6", "-p", "br", "-m", "-32,-32",
+        "-d", f"{FIXTURES}/dropon.jpg,{FIXTURES}/mask.jpg", "-p", "tl",
+        "-d", f"{FIXTURES}/dropon.png", "-x", "-o", out_a, "-g", "-o", out_b]
+
+
+def _cli_footprints(src):
+    """Per component, True on the blocks the two dropons of _cli_args
+    cover."""
+    import libmodjpeg_tpu_torch as mt
+    from libmodjpeg_tpu import codec
+    from libmodjpeg_tpu_torch.parallel import BatchComposer
+
+    img = codec.decode(open(src, "rb").read())
+    masks = [np.zeros(c.shape[:2], bool) for c in img.coefs]
+    for dropon, mask, align in (
+            ("dropon.jpg", "mask.jpg", mt.ALIGN_BOTTOM | mt.ALIGN_RIGHT),
+            ("dropon.png", None, mt.ALIGN_TOP | mt.ALIGN_LEFT)):
+        d = mt.read_dropon(f"{FIXTURES}/{dropon}",
+                           mask=mask and f"{FIXTURES}/{mask}", device="cpu")
+        bc = BatchComposer(img, d, align, -32, -32, device="cpu")
+        for c, (r0, c0, h, w) in enumerate(bc._region_origins()):
+            masks[c][r0:r0 + h, c0:c0 + w] = True
+    return masks
+
+
+def _share_within_one(a, b, label):
+    """Max |a - b| <= 1 on under MAX_DIFF_SHARE of the entries; returns the
+    count that differ."""
+    d = np.abs(a.astype(np.int64) - b.astype(np.int64))
+    n = int((d != 0).sum())
+    if d.size and (d.max() > 1 or n / d.size >= MAX_DIFF_SHARE):
+        raise AssertionError(f"{label}: max|d|={d.max()}, {n}/{d.size} "
+                             f"differ")
+    return n
+
+
+def phase_cli():
+    from libmodjpeg_tpu import codec
+    from libmodjpeg_tpu_torch import cli
+    from libmodjpeg_tpu_torch.encode_pixels import from_pixels
+    from libmodjpeg_tpu_torch.ops import compose_kernel as ck
+    from libmodjpeg_tpu_torch.pixels import to_pixels
+
+    os.makedirs(WORK, exist_ok=True)
+    src = os.path.join(WORK, "in.jpg")
+    img = from_pixels(make_test_image(np.random.RandomState(7), CLI_W, CLI_H),
+                      quality=85, subsampling="420", device="cuda")
+    with open(src, "wb") as f:
+        f.write(codec.encode(img))
+    ncomps = img.num_components
+    log(f"cli input: {CLI_W}x{CLI_H} 4:2:0 q85, {os.path.getsize(src)} B")
+
+    outs, walls, launches = {}, {}, {}
+    for dev in ("cuda", "cpu"):
+        for bitexact in (False, True):
+            key = (dev, bitexact)
+            tag = f"{dev}{'_X' if bitexact else ''}"
+            out_a = os.path.join(WORK, f"a_{tag}.jpg")
+            out_b = os.path.join(WORK, f"b_{tag}.jpg")
+            torch.cuda.synchronize()
+            before = ck.launches
+            t0 = time.perf_counter()
+            rc = cli.main(_cli_args(src, out_a, out_b, bitexact), device=dev)
+            torch.cuda.synchronize()
+            walls[key] = time.perf_counter() - t0
+            launched = launches[key] = ck.launches - before
+            log(f"cli {tag}: rc={rc} {walls[key]:.3f} s "
+                f"({CLI_W * CLI_H / 1e6 / walls[key]:.2f} MP/s), "
+                f"{launched} compose launches")
+            if rc != 0:
+                raise AssertionError(f"cli {tag} exited {rc}")
+            want = 0 if (bitexact or dev == "cpu") else 2 * ncomps
+            if launched != want:
+                raise AssertionError(f"cli {tag}: {launched} compose "
+                                     f"launches, expected {want}")
+            outs[key] = [open(p, "rb").read() for p in (out_a, out_b)]
+
+    for i, name in enumerate(("a.jpg", "b.jpg")):
+        if outs[("cuda", True)][i] != outs[("cpu", True)][i]:
+            raise AssertionError(f"-X {name}: card bytes != cpu bytes")
+    log("cli -X: a.jpg and b.jpg byte-identical between card and cpu")
+
+    card_a = codec.decode(outs[("cuda", False)][0])
+    cpu_a = codec.decode(outs[("cpu", False)][0])
+    n = _share_within_one(to_pixels(card_a, device="cuda"),
+                          to_pixels(cpu_a, device="cpu"), "a.jpg pixels")
+    log(f"cli a.jpg pixels, card run on card vs cpu run on cpu: {n} of "
+        f"{CLI_W * CLI_H * 3} samples differ (max 1)")
+    inside = _cli_footprints(src)
+    for i, name in enumerate(("a.jpg", "b.jpg")):
+        g = codec.decode(outs[("cuda", False)][i])
+        c = codec.decode(outs[("cpu", False)][i])
+        differing = total = 0
+        for k, m in enumerate(inside):
+            if not np.array_equal(g.coefs[k][~m], c.coefs[k][~m]):
+                raise AssertionError(f"cli {name}: coefficients outside the "
+                                     f"footprints differ")
+            differing += _share_within_one(g.coefs[k][m], c.coefs[k][m],
+                                           f"cli {name} footprint")
+            total += int(m.sum()) * 64
+        if differing / total >= MAX_DIFF_SHARE:
+            raise AssertionError(f"cli {name}: {differing}/{total} differ")
+        log(f"cli {name}: identical outside the footprints; {differing} of "
+            f"{total} footprint coefficients differ from the cpu run (max 1)")
+    return launches[("cuda", False)]
+
+
 def main():
     from concurrent.futures import ThreadPoolExecutor
 
     phase_environment()
+    from libmodjpeg_tpu_torch.ops import compose_kernel as ck
+
     phase_build()
     max_err, times = phase_kernel()
+    blend_err, blend_times = phase_blend()
     with ThreadPoolExecutor(max_workers=max(2, os.cpu_count() or 2)) as pool:
         launches = phase_main_path(pool)
+    bench = phase_kernel_bench()
+    torch.cuda.synchronize()
+    ck.launches = 0
+    cli_launches = phase_cli()
     k_ms, p_ms = times[TIMED_NS[0]]
+    bk_ms, bp_ms = blend_times[TIMED_NS[0]]
     print(json.dumps({"kernels": [{
         "name": "compose_blocks",
         "route": "cuda",
@@ -325,6 +560,19 @@ def main():
         "max_abs_err": max_err,
         "ms": k_ms,
         "plain_ms": p_ms,
+        "launches_by_path": {"watermark_stream": launches,
+                             "kernel_bench": bench["compose"],
+                             "cli": cli_launches},
+    }, {
+        "name": "blend_blocks",
+        "route": "cuda",
+        "source": "libmodjpeg_tpu_torch/csrc/compose.cu",
+        "replaces": "libmodjpeg_tpu/ops/pallas_compose.py:52",
+        "launches": bench["blend"],
+        "max_abs_err": blend_err,
+        "ms": bk_ms,
+        "plain_ms": bp_ms,
+        "launches_by_path": {"kernel_bench": bench["blend"]},
     }]}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -3,12 +3,13 @@ libmodjpeg_tpu, ported to PyTorch with a hand-written CUDA kernel for
 NVIDIA Hopper.
 
 The host layer (the C++ entropy codec, the CoefImage/Dropon models, PNG and
-raw dropon ingestion, the surgical splice planner) is imported from
-libmodjpeg_tpu as it is; those modules import no JAX.  What ran on the TPU
-(dropon compilation, the compose step, the packed device step of the
+raw dropon ingestion, the surgical splice planner, the bit-exact compose
+arithmetic) is imported from libmodjpeg_tpu as it is; those modules import
+no JAX.  What ran on the TPU (dropon compilation, JPEG-dropon decoding to
+pixels, the compose step, the effects, the packed device step of the
 streaming pipeline) runs here on a torch ``device``: ``"cuda"`` by default,
 ``"cpu"`` for the plain-torch path.  Nothing falls back from one to the
-other.
+other.  ``python -m libmodjpeg_tpu_torch.cli`` is the modjpeg CLI.
 """
 
 from libmodjpeg_tpu.constants import (  # noqa: F401
@@ -65,21 +66,16 @@ def write_jpeg(img: "CoefImage", dest=None, options: int = 0,
     return _impl(img, dest, options=options, ref_markers=ref_markers)
 
 
-def read_dropon(source, mask=None, blend: int = BLEND_FULL) -> "Dropon":
-    """Load a PNG dropon from a path or bytes.
+def read_dropon(source, mask=None, blend: int = BLEND_FULL,
+                device="cuda") -> "Dropon":
+    """Load a dropon from a PNG/JPEG path or bytes, with optional JPEG mask;
+    a JPEG decodes to pixels on ``device``.
 
-    JPEG dropons (and JPEG masks) need the coefficient-to-pixel decode,
-    which this package does not have yet: they raise NotImplementedError.
+    Mirrors mj_read_dropon_from_file/_memory (dropon.c:34,66).
     """
-    from libmodjpeg_tpu.dropon import _read_bytes
-    from libmodjpeg_tpu.dropon import read_dropon as _impl
+    from .dropon import read_dropon as _impl
 
-    data = _read_bytes(source)
-    if mask is not None or (data is not None and data[:3] == b"\xff\xd8\xff"):
-        raise NotImplementedError(
-            "JPEG dropons and JPEG masks are not supported by "
-            "libmodjpeg_tpu_torch yet; use a PNG or read_dropon_from_raw")
-    return _impl(data, blend=blend)
+    return _impl(source, mask=mask, blend=blend, device=device)
 
 
 def read_dropon_from_raw(rawdata, colorspace: int, width: int, height: int,
@@ -91,13 +87,23 @@ def read_dropon_from_raw(rawdata, colorspace: int, width: int, height: int,
 
 
 def compose(img: "CoefImage", dropon: "Dropon", align: int = 0,
-            offset_x: int = 0, offset_y: int = 0,
+            offset_x: int = 0, offset_y: int = 0, bitexact: bool = False,
             device="cuda") -> "CoefImage":
     """Compose a dropon onto an image entirely in the DCT domain on
-    ``device`` (mj_compose semantics).  Returns a new CoefImage."""
-    from .composer import compose as _impl
+    ``device`` (mj_compose semantics).  Returns a new CoefImage.
 
-    return _impl(img, dropon, align, offset_x, offset_y, device=device)
+    ``bitexact=True`` selects the host-side reference-parity path (numpy on
+    the host whatever ``device`` says): with
+    ``write_jpeg(..., ref_markers=True)`` whole output files are
+    byte-identical to the reference binary's.
+    """
+    from . import composer
+
+    if bitexact:
+        return composer.compose_bitexact(img, dropon, align, offset_x,
+                                         offset_y)
+    return composer.compose(img, dropon, align, offset_x, offset_y,
+                            device=device)
 
 
 _WATERMARK_CACHE: dict = {}  # (dropon fp, geometry, placement, device) -> composer
@@ -173,3 +179,29 @@ def watermark(data: bytes, dropon: "Dropon", align: int = 0,
                             else codec.decode(data))
     return next(iter(bc.watermark_stream(iter([data]), batch=1,
                                          surgical=surgical)))
+
+
+def effect_grayscale(img: "CoefImage", device="cuda") -> "CoefImage":
+    from .effects import grayscale
+
+    return grayscale(img, device=device)
+
+
+def effect_pixelate(img: "CoefImage", device="cuda") -> "CoefImage":
+    from .effects import pixelate
+
+    return pixelate(img, device=device)
+
+
+def effect_tint(img: "CoefImage", cb_value: int, cr_value: int,
+                device="cuda") -> "CoefImage":
+    from .effects import tint
+
+    return tint(img, cb_value, cr_value, device=device)
+
+
+def effect_luminance(img: "CoefImage", value: int,
+                     device="cuda") -> "CoefImage":
+    from .effects import luminance
+
+    return luminance(img, value, device=device)

@@ -27,6 +27,18 @@ ARCH_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a")
 NVCC_FLAGS = ARCH_FLAGS + ("-std=c++17", "-O3", "-shared", "-Xcompiler",
                            "-fPIC", "-Xptxas", "-v")
 
+# argtypes of each C entry point: pointers and the stream as c_void_p (a
+# Python int passed without them would be cut to 32 bits), counts as
+# c_longlong; every entry point returns a CUDA error code as int
+SIGNATURES = {
+    # region, x0, mask, quant, u, out, n, stream
+    "mjt_compose_blocks": [ctypes.c_void_p] * 6 + [ctypes.c_longlong,
+                                                   ctypes.c_void_p],
+    # image, x0, mask, u, out, n, stream
+    "mjt_blend_blocks": [ctypes.c_void_p] * 5 + [ctypes.c_longlong,
+                                                 ctypes.c_void_p],
+}
+
 _lock = threading.Lock()
 _lib = None
 # what the last build in this process reported: seconds and compiler output
@@ -97,9 +109,9 @@ def load() -> ctypes.CDLL:
     with _lock:
         if _lib is None:
             lib = ctypes.CDLL(build())
-            fn = lib.mjt_compose_blocks
-            fn.restype = ctypes.c_int
-            fn.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_longlong,
-                                                   ctypes.c_void_p]
+            for name, argtypes in SIGNATURES.items():
+                fn = getattr(lib, name)
+                fn.restype = ctypes.c_int
+                fn.argtypes = argtypes
             _lib = lib
         return _lib

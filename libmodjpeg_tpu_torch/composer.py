@@ -221,3 +221,38 @@ def compose(img: CoefImage, d: Dropon, align: int = 0, offset_x: int = 0,
     bc = BatchComposer(out, d, align, offset_x, offset_y, device=device)
     bc.compose_images([out])
     return out
+
+
+def compose_bitexact(img: CoefImage, d: Dropon, align: int = 0,
+                     offset_x: int = 0, offset_y: int = 0) -> CoefImage:
+    """mj_compose with reference-identical arithmetic, on the host (the
+    port of libmodjpeg_tpu.bitexact.compose_bitexact around this module's
+    plan_placement; that module's own wrapper imports the JAX composer).
+    Returns a new image."""
+    from libmodjpeg_tpu.bitexact import blend_bitexact, compile_dropon_bitexact
+
+    if img is None or d is None:
+        raise NullDataError("image and dropon required")
+    out = img.copy()
+    p = plan_placement(img, d, align, offset_x, offset_y)
+    if p.noop:
+        return out
+    samp = [(ci.h_samp, ci.v_samp) for ci in img.components]
+    image_blocks, alpha_weights = compile_dropon_bitexact(
+        d, img.jpeg_color_space, img.sampling.max_h_samp,
+        img.sampling.max_v_samp, samp, p.blockoffset_x, p.blockoffset_y,
+        p.crop_x, p.crop_y, p.crop_w, p.crop_h)
+    for c in range(len(image_blocks)):
+        ci = img.components[c]
+        r0 = p.block_y * ci.v_samp
+        c0 = p.block_x * ci.h_samp
+        hib, wib = image_blocks[c].shape[:2]
+        region = out.coefs[c][r0:r0 + hib, c0:c0 + wib]
+        blended = blend_bitexact(
+            region.reshape(-1, 64),
+            img.quant_table_for(c).reshape(-1),
+            image_blocks[c].reshape(-1, 64),
+            alpha_weights[c].reshape(-1, 64))
+        out.coefs[c][r0:r0 + hib, c0:c0 + wib] = \
+            blended.reshape(hib, wib, 8, 8)
+    return out

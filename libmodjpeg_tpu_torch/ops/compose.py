@@ -9,7 +9,8 @@ per-coefficient pixel-domain mask m (mask_pix_np) the blend is
 two GEMMs per block.  ``compose_blocks`` is the full quantized compose step
 (dequantize, blend, truncating correction, truncating requantize); it runs
 the hand-written CUDA kernel (compose_kernel.py) on a CUDA tensor and the
-plain-torch ``compose_blocks_ref`` on a CPU tensor.
+plain-torch ``compose_blocks_ref`` on a CPU tensor.  ``blend_blocks_auto``
+routes the bare f32 blend the same way (kernel bench and parity only).
 """
 
 from __future__ import annotations
@@ -53,16 +54,24 @@ def mask_pix_np(w_alpha: np.ndarray) -> np.ndarray:
     return np.ascontiguousarray(m, np.float32)
 
 
-def dct_kron(device) -> torch.Tensor:
-    """_dct_kron() as a float32 tensor on ``device``."""
+@functools.lru_cache(maxsize=None)
+def _dct_kron_on(device: torch.device) -> torch.Tensor:
     return torch.from_numpy(_dct_kron()).to(device)
+
+
+def dct_kron(device) -> torch.Tensor:
+    """_dct_kron() as a float32 tensor on ``device``, made once per device
+    and shared by every caller (nobody writes to it): a copy to the card on
+    every call would synchronise the stream."""
+    return _dct_kron_on(torch.device(device))
 
 
 def blend_blocks_m(x_image: torch.Tensor, x_dropon: torch.Tensor,
                    mask_pix: torch.Tensor) -> torch.Tensor:
     """Masked blend via the pixel-domain mask: x1 + IDCT2(m * DCT2(x0 - x1)).
 
-    x_image/x_dropon/mask_pix: [N, 8, 8] float32.  Returns [N, 8, 8].
+    x_image/x_dropon/mask_pix: [N, 8, 8] float32.  Returns [N, 8, 8].  The
+    plain version of the blend kernel (compose_kernel.blend_blocks_cuda).
     """
     n = x_image.shape[0]
     U = dct_kron(x_image.device)
@@ -71,6 +80,26 @@ def blend_blocks_m(x_image: torch.Tensor, x_dropon: torch.Tensor,
     t = (X @ U) * mask_pix.reshape(n, 64)
     Y = t @ U.T
     return x_image + Y.reshape(n, 8, 8)
+
+
+def blend_blocks_auto(x_image: torch.Tensor, x_dropon: torch.Tensor,
+                      mask_pix: torch.Tensor) -> torch.Tensor:
+    """The f32 blend on [N, 8, 8] operands (pixel-mask contract): a CPU
+    tensor runs blend_blocks_m, a CUDA tensor the kernel's blend mode
+    (compose_kernel.blend_blocks_cuda), which raises rather than fall back.
+
+    No compose path calls it: every compose runs the fused compose_blocks.
+    It exists for the kernel bench and for parity with the TPU blend kernel.
+    """
+    if x_image.device.type == "cpu":
+        return blend_blocks_m(x_image, x_dropon, mask_pix)
+    from .compose_kernel import blend_blocks_cuda
+
+    n = x_image.shape[0]
+    y = blend_blocks_cuda(x_image.reshape(n, 64).contiguous(),
+                          x_dropon.reshape(n, 64).contiguous(),
+                          mask_pix.reshape(n, 64).contiguous())
+    return y.reshape(n, 8, 8)
 
 
 def requant_trunc(values: torch.Tensor, quant: torch.Tensor) -> torch.Tensor:

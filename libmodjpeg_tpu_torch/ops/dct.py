@@ -41,10 +41,38 @@ def fdct_blocks(pixels: torch.Tensor, center: float = 128.0) -> torch.Tensor:
     return torch.einsum("ux,...xy,vy->...uv", T, x, T)
 
 
+def idct_blocks(coefs: torch.Tensor, center: float = 128.0) -> torch.Tensor:
+    """Inverse DCT: [..., 8, 8] float32 coefficients -> [..., 8, 8] pixel
+    values, T.T @ X @ T + center.
+
+    Each 8-term sum is written out as separate multiply and add passes in a
+    fixed order rather than a matmul: every elementwise op is one IEEE f32
+    operation on any device, so the card and the CPU give the same bits and
+    the later rint cannot tip differently on the two (a matmul library sums
+    in its own order, and a DC-only block lands exactly on a .5 tie).
+    """
+    T = torch.from_numpy(_t32()).to(coefs.device)
+    # rows: tmp[..., u, y] = sum_v X[..., u, v] * T[v, y]
+    tmp = coefs[..., :, 0:1] * T[0]
+    for v in range(1, 8):
+        tmp = tmp + coefs[..., :, v:v + 1] * T[v]
+    # columns: out[..., x, y] = sum_u T[u, x] * tmp[..., u, y]
+    out = T[0][:, None] * tmp[..., 0:1, :]
+    for u in range(1, 8):
+        out = out + T[u][:, None] * tmp[..., u:u + 1, :]
+    return out + center
+
+
 def tile_blocks(plane: torch.Tensor) -> torch.Tensor:
     """[H, W] plane (H, W multiples of 8) -> [H/8, W/8, 8, 8] blocks."""
     h, w = plane.shape
     return plane.reshape(h // 8, 8, w // 8, 8).permute(0, 2, 1, 3)
+
+
+def untile_blocks(blocks: torch.Tensor) -> torch.Tensor:
+    """[bh, bw, 8, 8] -> [bh*8, bw*8]."""
+    bh, bw = blocks.shape[:2]
+    return blocks.permute(0, 2, 1, 3).reshape(bh * 8, bw * 8)
 
 
 def rgb_to_ycc(rgb: torch.Tensor, center: float = 128.0) -> torch.Tensor:
@@ -72,3 +100,29 @@ def subsample_plane(plane: torch.Tensor, fh: int, fv: int) -> torch.Tensor:
         return plane
     h, w = plane.shape
     return plane.reshape(h // fv, fv, w // fh, fh).mean(dim=(1, 3))
+
+
+def upsample_plane_fancy(plane: torch.Tensor, fh: int,
+                         fv: int) -> torch.Tensor:
+    """Triangle-filter ("fancy") upsample of [H, W] by factors 1 or 2, with
+    the JAX package's float formulas ((3a + b + 1) / 4 and (3a + b + 2) / 4,
+    edges replicated), not libjpeg's integer shifts; other factors repeat
+    samples."""
+    out = plane
+    if fh == 2:
+        right = torch.cat([out[:, :1], out[:, :-1]], dim=1)
+        nxt = torch.cat([out[:, 1:], out[:, -1:]], dim=1)
+        a = (3.0 * out + right + 1.0) / 4.0
+        b = (3.0 * out + nxt + 2.0) / 4.0
+        out = torch.stack([a, b], dim=-1).reshape(out.shape[0], -1)
+    elif fh != 1:
+        out = torch.repeat_interleave(out, fh, dim=1)
+    if fv == 2:
+        up = torch.cat([out[:1], out[:-1]], dim=0)
+        down = torch.cat([out[1:], out[-1:]], dim=0)
+        a = (3.0 * out + up + 1.0) / 4.0
+        b = (3.0 * out + down + 2.0) / 4.0
+        out = torch.stack([a, b], dim=1).reshape(-1, out.shape[1])
+    elif fv != 1:
+        out = torch.repeat_interleave(out, fv, dim=0)
+    return out

@@ -1,5 +1,5 @@
-"""The CUDA compose kernel on the card (marked ``cuda``; skips without a
-GPU).  This file imports no JAX, so it also runs on a machine without it:
+"""The CUDA kernel's compose and blend modes and the pixel decode on the
+card (marked ``cuda``; skips without a GPU).  This file imports no JAX, so it also runs on a machine without it:
 
     python -m pytest --noconftest -p no:cacheprovider -m cuda \
         tests/test_torch_cuda.py
@@ -50,6 +50,51 @@ def test_kernel_matches_plain_version(cuda, n):
         d = np.abs(got - ref.numpy().astype(int))
         assert d.max() <= 1 and (d != 0).mean() < 0.005
     np.testing.assert_array_equal(got[zero], cpu[0].numpy()[zero])
+
+
+@pytest.mark.parametrize("n", [1, 15, 17, 4099])
+def test_blend_kernel_matches_plain_version(cuda, n):
+    """Blend mode: the TPU blend kernel's relative bar (rtol 1e-5, atol
+    1e-3) against the plain version on the card and on the CPU, zero-mask
+    blocks exactly x1, and one blend launch counted per call."""
+    rng = np.random.RandomState(100 + n)
+    x1 = (rng.randn(n, 64) * 300).astype(np.float32)
+    x0 = (rng.randn(n, 64) * 300).astype(np.float32)
+    m = (rng.rand(n, 64) * 0.9).astype(np.float32)
+    zero = np.arange(n) % 3 == 0
+    m[zero] = 0.0
+    cpu = [torch.from_numpy(a) for a in (x1, x0, m)]
+    dev = [t.to(cuda) for t in cpu]
+    before = ck.blend_launches
+    got = ck.blend_blocks_cuda(*dev)
+    torch.cuda.synchronize()
+    assert ck.blend_launches == before + 1
+    got = got.cpu().numpy()
+    for ts in (dev, cpu):
+        ref = ck.blend_blocks_m(*[t.reshape(n, 8, 8) for t in ts])
+        np.testing.assert_allclose(got, ref.cpu().numpy().reshape(n, 64),
+                                   rtol=1e-5, atol=1e-3)
+    np.testing.assert_array_equal(got[zero], x1[zero])
+
+
+def test_to_pixels_on_card_equals_cpu(cuda):
+    """The fixed-order IDCT gives the card and the CPU the same pixels, so
+    a JPEG dropon compiles to the same bits on both."""
+    import os
+
+    import libmodjpeg_tpu_torch as mt
+    from libmodjpeg_tpu import codec
+    from libmodjpeg_tpu_torch.pixels import to_pixels
+
+    fixtures = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                            "fixtures")
+    for name in ("image.jpg", "dropon.jpg", "mask.jpg"):
+        with open(os.path.join(fixtures, name), "rb") as f:
+            img = codec.decode(f.read())
+        for cs in (mt.COLORSPACE_RGB, mt.COLORSPACE_GRAYSCALE,
+                   mt.COLORSPACE_YCC):
+            np.testing.assert_array_equal(to_pixels(img, cs, device=cuda),
+                                          to_pixels(img, cs, device="cpu"))
 
 
 def test_kernel_rejects_bad_inputs(cuda):

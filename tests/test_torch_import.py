@@ -27,12 +27,17 @@ with open({img!r}, "rb") as f:
     data = f.read()
 assert mt.watermark(data, d, mt.ALIGN_TOP | mt.ALIGN_LEFT, 8, 8,
                     device="cpu")[:2] == b"\xff\xd8"
-try:
-    mt.read_dropon({jpg!r})
-except NotImplementedError:
-    pass
-else:
-    raise AssertionError("JPEG dropon should raise NotImplementedError")
+jd = mt.read_dropon({jpg!r}, mask={mask!r}, device="cpu")
+assert jd.colorspace == mt.COLORSPACE_RGB and jd.blend == mt.BLEND_NONUNIFORM
+# the CLI with a JPEG dropon + mask, an effect and the bit-exact path
+from libmodjpeg_tpu_torch import cli
+for flags in ([], ["-X"]):
+    rc = cli.main(flags + ["-i", {img!r}, "-y", "20", "-p", "br", "-d",
+                           {jpg!r} + "," + {mask!r}, "-g", "-o", {out!r}],
+                  device="cpu")
+    assert rc == 0, rc
+    with open({out!r}, "rb") as f:
+        assert f.read(2) == b"\xff\xd8"
 leaked = sorted(m for m in sys.modules
                 if (m == "jax" or m.startswith("jax.")) and sys.modules[m])
 assert not leaked, leaked
@@ -40,12 +45,16 @@ print("OK", changed)
 """
 
 
-def test_port_composes_with_jax_blocked():
-    """A fresh interpreter (the test process already imported jax)."""
+def test_port_composes_with_jax_blocked(tmp_path):
+    """A fresh interpreter (the test process already imported jax).  The CLI
+    run with a JPEG dropon and -X shows that the JAX package's JPEG-dropon
+    reader and bit-exact wrapper, which import jax, are not reached."""
     script = _SCRIPT.format(repo=REPO,
                             img=os.path.join(FIXTURE_IMAGES, "image.jpg"),
                             png=os.path.join(FIXTURE_IMAGES, "dropon.png"),
-                            jpg=os.path.join(FIXTURE_IMAGES, "dropon.jpg"))
+                            jpg=os.path.join(FIXTURE_IMAGES, "dropon.jpg"),
+                            mask=os.path.join(FIXTURE_IMAGES, "mask.jpg"),
+                            out=str(tmp_path / "out.jpg"))
     env = dict(os.environ)
     env.pop("PYTHONPATH", None)
     r = subprocess.run([sys.executable, "-c", script], capture_output=True,
@@ -69,12 +78,13 @@ def _reaches_jax(m: str) -> bool:
 def test_no_module_of_the_port_imports_jax():
     """An AST scan: no import of jax, nor of a JAX-package module that
     imports it, anywhere in the port."""
-    found = []
+    found, scanned = [], set()
     for root, _, files in os.walk(_PKG):
         for name in files:
             if not name.endswith(".py"):
                 continue
             path = os.path.join(root, name)
+            scanned.add(os.path.relpath(path, _PKG).replace(os.sep, "/"))
             with open(path) as f:
                 tree = ast.parse(f.read(), path)
             for node in ast.walk(tree):
@@ -88,3 +98,5 @@ def test_no_module_of_the_port_imports_jax():
                     if _reaches_jax(m):
                         found.append(f"{path}:{node.lineno} {m}")
     assert not found, found
+    assert {"cli.py", "dropon.py", "effects.py", "pixels.py",
+            "ops/effects.py", "scripts/kernel_bench.py"} <= scanned, scanned
