@@ -33,7 +33,25 @@ Phases, each of which raises on failure:
    device="cpu".  Checks exit codes, 3 compose launches per compose, the
    pixels and coefficients of the card run against the CPU run (identical
    outside the footprints, +-1 on under 0.5% inside), and byte-identical
-   -X outputs.
+   -X outputs;
+7. the huge-image GridSession at full size: the JAX package's 100 MP
+   4:2:0 frame (tests/test_bigimage.py synth_big(100.0), rebuilt here),
+   encoded with restart_interval=64 and decoded, then on the card
+   luminance(60) + tint(cb 25) + compose(dropon.png, centre) + an
+   optimized to_jpeg whose Huffman statistics come from the device
+   histogram.  Checks the bytes against the host OPTION_OPTIMIZE encode of
+   the same coefficients, the coefficients against the same chain with
+   device="cpu" (identical outside the footprint, +-1 on under 0.5%
+   inside), and 3 compose launches; times the effects rounds of bench.py's
+   grid_effects lane, the device tables against the host optimize walk
+   and to_jpeg, and reports the peak device memory;
+8. the corpus runner (libmodjpeg_tpu_torch.corpus.run_corpus) over the 32
+   files of phase 4, on the card and with device="cpu": the stream route
+   (dropon only), a resume run that skips all 32, and the effects route
+   (luminance + dropon).  Checks 0 failures, card outputs against CPU
+   outputs (identical outside the footprint, +-1 on under 0.5% inside,
+   byte-identical wherever the coefficients are); then compose_batch on 8
+   of the images against 8 single compose calls on the card (identical).
 
 Prints one JSON line describing the kernels, and as the last line
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
@@ -62,6 +80,10 @@ TIMED_REPS = 50
 MAX_DIFF_SHARE = 0.005
 BLEND_RTOL, BLEND_ATOL = 1e-5, 1e-3   # tests/test_pallas.py:30
 CLI_W, CLI_H = 3840, 2160
+BIG_MP = 100.0        # tests/test_bigimage.py with MJT_BIG=1
+BIG_RESTART = 64
+EFFECT_ROUNDS = 6     # bench.py grid_effects: KG
+N_COMPOSE_BATCH = 8
 FIXTURES = os.path.join(REPO, "tests", "fixtures")
 WORK = os.path.join(REPO, "build", "chip_smoke")
 
@@ -404,7 +426,7 @@ def phase_main_path(pool):
                                  f"{cpu_bc.last_stream_path}")
         _check_footprint(bc._region_origins(), datas, results[name], cpu_out,
                          name)
-    return total_launches
+    return total_launches, free
 
 
 # -- phase 5: the kernel bench -------------------------------------------------
@@ -534,6 +556,279 @@ def phase_cli():
     return launches[("cuda", False)]
 
 
+# -- phase 7: the huge-image GridSession --------------------------------------
+
+def synth_big(mp_target):
+    """A big 4:2:0 coefficient image with photo-like sparsity: random DC
+    and two AC coefficients per block, and a block-row count that does not
+    divide by 8 (tests/test_bigimage.py synth_big, rebuilt here because
+    tests/ imports JAX)."""
+    from libmodjpeg_tpu import constants as C
+    from libmodjpeg_tpu.model import CoefImage, ComponentInfo, Sampling
+
+    mcus_w = int(np.sqrt(mp_target * 1e6 * (3 / 2)) // 16)
+    mcus_h = int(mp_target * 1e6 // (mcus_w * 16 * 16))
+    if mcus_h % 8 == 0:
+        mcus_h -= 1
+    rng = np.random.RandomState(0)
+    comps, coefs = [], []
+    for c, (sh, sv) in enumerate([(2, 2), (1, 1), (1, 1)]):
+        pw, ph = mcus_w * sh, mcus_h * sv
+        a = np.zeros((ph, pw, 8, 8), np.int16)
+        a[..., 0, 0] = rng.randint(-200, 200, (ph, pw))
+        a[..., 0, 1] = rng.randint(-20, 20, (ph, pw))
+        a[..., 1, 0] = rng.randint(-20, 20, (ph, pw))
+        comps.append(ComponentInfo(c + 1, sh, sv, 0 if c == 0 else 1,
+                                   pw, ph, pw, ph))
+        coefs.append(a)
+    return CoefImage(
+        width=mcus_w * 16, height=mcus_h * 16, jpeg_color_space=C.JCS_YCbCr,
+        components=comps, coefs=coefs,
+        quant_tables={0: np.full((8, 8), 6, np.uint16),
+                      1: np.full((8, 8), 11, np.uint16)},
+        sampling=Sampling(2, 2))
+
+
+def _grid_chain(img, logo, device, compiled=None):
+    """The phase-7 chain on a new GridSession; returns the session."""
+    import libmodjpeg_tpu_torch as mt
+    from libmodjpeg_tpu_torch.parallel import GridSession
+
+    sess = GridSession(img, device=device)
+    sess.effect("luminance", value=60).effect("tint", cb_value=25)
+    sess.compose(logo, mt.ALIGN_CENTER, compiled=compiled)
+    return sess.block_until_ready()
+
+
+def _compare_coefs(a, b, inside, label):
+    """Per component: identical where ``inside`` is False, within +-1
+    where it is True, on under MAX_DIFF_SHARE of the footprint's
+    coefficients.  Returns (differing, total) inside."""
+    differing = total = 0
+    for c, m in enumerate(inside):
+        if not np.array_equal(a.coefs[c][~m], b.coefs[c][~m]):
+            raise AssertionError(f"{label}: coefficients outside the "
+                                 f"footprint differ (component {c})")
+        d = np.abs(a.coefs[c][m].astype(np.int64) - b.coefs[c][m])
+        if d.size and d.max() > 1:
+            raise AssertionError(f"{label}: footprint off by {d.max()}")
+        differing += int((d != 0).sum())
+        total += d.size
+    if total and differing / total >= MAX_DIFF_SHARE:
+        raise AssertionError(f"{label}: {differing}/{total} differ")
+    return differing, total
+
+
+def _footprint_masks(img, logo, align, ox, oy):
+    """Per component, True on the blocks the dropon's footprint covers."""
+    from libmodjpeg_tpu_torch.parallel import BatchComposer
+
+    bc = BatchComposer(img, logo, align, ox, oy, device="cpu")
+    masks = [np.zeros(c.shape[:2], bool) for c in img.coefs]
+    for c, (r0, c0, h, w) in enumerate(bc._region_origins()):
+        masks[c][r0:r0 + h, c0:c0 + w] = True
+    return masks
+
+
+def phase_grid_session():
+    import libmodjpeg_tpu_torch as mt
+    from libmodjpeg_tpu import codec
+    from libmodjpeg_tpu_torch import composer
+    from libmodjpeg_tpu_torch.ops import compose_kernel as ck
+
+    opt = mt.OPTION_OPTIMIZE
+    img = synth_big(BIG_MP)
+    mp = img.width * img.height / 1e6
+    blocks = sum(a.shape[0] * a.shape[1] for a in img.coefs)
+    t0 = time.perf_counter()
+    data = codec.encode(img, restart_interval=BIG_RESTART)
+    t_enc = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    back = codec.decode(data)
+    t_dec = time.perf_counter() - t0
+    for a, b in zip(back.coefs, img.coefs):
+        if not np.array_equal(a, b):
+            raise AssertionError("grid: encode/decode round trip differs")
+    log(f"grid: {img.width}x{img.height} 4:2:0 ({mp:.2f} MP, {blocks} "
+        f"blocks, {len(data)} B); encode {t_enc:.3f} s, decode {t_dec:.3f} s")
+    logo = mt.read_dropon(f"{FIXTURES}/dropon.png", device="cuda")
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    ck.launches = 0
+    t0 = time.perf_counter()
+    sess = _grid_chain(back, logo, "cuda")
+    t_chain = time.perf_counter() - t0
+    launches = ck.launches
+    log(f"grid: GridSession upload + luminance + tint + compose on the card "
+        f"{t_chain:.3f} s, {launches} compose launches")
+    if launches != 3:
+        raise AssertionError(f"grid: {launches} compose launches, "
+                             f"expected 3")
+
+    t0 = time.perf_counter()
+    out_bytes = sess.to_jpeg(options=opt, restart_interval=BIG_RESTART)
+    t_jpeg = time.perf_counter() - t0
+    got = sess.to_image()
+    t0 = time.perf_counter()
+    host_bytes = codec.encode(got, options=opt,
+                              restart_interval=BIG_RESTART)
+    t_host_opt = time.perf_counter() - t0
+    if out_bytes != host_bytes:
+        raise AssertionError("grid: device-histogram tables give other "
+                             "bytes than the host optimize pass")
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    tables = sess.optimized_tables(BIG_RESTART)
+    t_tables = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    codec.encode(got, restart_interval=BIG_RESTART, preset_tables=tables)
+    t_preset = time.perf_counter() - t0
+    log(f"grid: to_jpeg(OPTIMIZE) {t_jpeg:.3f} s, {len(out_bytes)} B == "
+        f"host OPTION_OPTIMIZE encode ({t_host_opt:.3f} s); device tables "
+        f"{t_tables:.4f} s vs host optimize walk ~{t_host_opt - t_preset:.3f}"
+        f" s (optimized encode {t_host_opt:.3f} s - preset-table encode "
+        f"{t_preset:.3f} s)")
+
+    p = composer.plan_placement(back, logo, mt.ALIGN_CENTER, 0, 0)
+    cd = composer.compile_dropon(logo, back, p.blockoffset_x,
+                                 p.blockoffset_y, p.crop_x, p.crop_y,
+                                 p.crop_w, p.crop_h, device="cuda")
+    t0 = time.perf_counter()
+    ref = _grid_chain(back, logo, "cpu", compiled=cd).to_image()
+    t_cpu = time.perf_counter() - t0
+    inside = _footprint_masks(back, logo, mt.ALIGN_CENTER, 0, 0)
+    differing, total = _compare_coefs(got, ref, inside, "grid")
+    log(f"grid: card vs device=\"cpu\" chain ({t_cpu:.3f} s): identical "
+        f"outside the footprint, {differing} of {total} footprint "
+        f"coefficients differ (max 1)")
+
+    def rounds(k):
+        for _ in range(k):
+            sess.effect("tint", cb_value=3, cr_value=-2)
+            sess.effect("luminance", value=1)
+            sess.effect("pixelate")
+        sess.block_until_ready()
+
+    rounds(1)
+    t0 = time.perf_counter()
+    rounds(EFFECT_ROUNDS)
+    dt = time.perf_counter() - t0
+    log(f"grid effects: {EFFECT_ROUNDS} rounds of tint+luminance+pixelate "
+        f"on {mp:.2f} MP in {dt:.4f} s = {mp * EFFECT_ROUNDS / dt:.1f} MP/s")
+    log(f"grid: peak device memory {torch.cuda.max_memory_allocated()} B")
+    del sess
+    return launches
+
+
+# -- phase 8: the corpus runner and compose_batch ---------------------------
+
+def _compare_outputs(card, cpu, inside, label):
+    """Card vs CPU output files: coefficients within the bar, and bytes
+    identical wherever the coefficients are."""
+    from libmodjpeg_tpu import codec
+
+    differing = total = same = 0
+    for name in sorted(card):
+        a, b = codec.decode(card[name]), codec.decode(cpu[name])
+        d, t = _compare_coefs(a, b, inside, f"{label} {name}")
+        differing += d
+        total += t
+        if d == 0:
+            if card[name] != cpu[name]:
+                raise AssertionError(f"{label} {name}: same coefficients, "
+                                     f"other bytes")
+            same += 1
+    if differing / total >= MAX_DIFF_SHARE:
+        raise AssertionError(f"{label}: {differing}/{total} differ")
+    log(f"{label}: card vs cpu identical outside the footprint; "
+        f"{differing} of {total} footprint coefficients differ (max 1); "
+        f"{same} of {len(card)} files byte-identical")
+
+
+def phase_corpus(datas):
+    import libmodjpeg_tpu_torch as mt
+    from libmodjpeg_tpu import codec
+    from libmodjpeg_tpu_torch.corpus import CorpusConfig, run_corpus
+    from libmodjpeg_tpu_torch.ops import compose_kernel as ck
+    from libmodjpeg_tpu_torch.parallel import compose_batch
+
+    src = os.path.join(WORK, "corpus_in")
+    os.makedirs(src, exist_ok=True)
+    for i, d in enumerate(datas):
+        with open(os.path.join(src, f"f{i:03d}.jpg"), "wb") as f:
+            f.write(d)
+    png = f"{FIXTURES}/dropon.png"
+    dropon = mt.read_dropon(png, device="cuda")
+    place = (mt.ALIGN_BOTTOM | mt.ALIGN_RIGHT, *PLACE_OFFSET)
+    align, ox, oy = place
+    inside = _footprint_masks(codec.decode(datas[0]), dropon, *place)
+    routes = {"stream": [], "effects": [("luminance", (12,))]}
+    launches = 0
+    for route, effects in routes.items():
+        outs = {}
+        for dev in ("cuda", "cpu"):
+            out = os.path.join(WORK, f"corpus_{route}_{dev}")
+            cfg = CorpusConfig(inputs=[src], output_dir=out,
+                               dropon_path=png, align=align, offset_x=ox,
+                               offset_y=oy, effects=effects, batch_size=BATCH)
+            torch.cuda.synchronize()
+            before = ck.launches
+            s = run_corpus(cfg, device=dev)
+            torch.cuda.synchronize()
+            if dev == "cuda":
+                launches += ck.launches - before
+            log(f"corpus {route} {dev}: {s['files_done']} done, "
+                f"{s['files_failed']} failed, {s['mp_per_s']} MP/s, "
+                f"wall {s['wall_s']} s, stages {s['stage_s']}"
+                + (f", paths {s['stream_paths']}" if "stream_paths" in s
+                   else ""))
+            if s["files_failed"] or s["files_done"] != len(datas):
+                raise AssertionError(f"corpus {route} {dev}: {s}")
+            outs[dev] = {n: open(os.path.join(out, n), "rb").read()
+                         for n in sorted(os.listdir(out))
+                         if n.endswith(".jpg")}
+            if route == "stream" and dev == "cuda":
+                cfg.resume = True
+                r = run_corpus(cfg, device=dev)
+                log(f"corpus resume: {r['files_done']} done, "
+                    f"{r['skipped_resume']} skipped")
+                if r["files_done"] or r["skipped_resume"] != len(datas):
+                    raise AssertionError(f"corpus resume: {r}")
+        _compare_outputs(outs["cuda"], outs["cpu"], inside,
+                         f"corpus {route}")
+        if route == "stream":
+            for name, blob in outs["cuda"].items():
+                x = codec.decode(datas[int(name[1:4])])
+                y = codec.decode(blob)
+                for c, m in enumerate(inside):
+                    if not np.array_equal(x.coefs[c][~m], y.coefs[c][~m]):
+                        raise AssertionError(f"corpus stream {name}: "
+                                             f"untouched coefficients moved")
+    log(f"corpus: {launches} compose launches on the card")
+    if launches == 0:
+        raise AssertionError("corpus never launched the kernel")
+
+    images = [codec.decode(d) for d in datas[:N_COMPOSE_BATCH]]
+    torch.cuda.synchronize()
+    ck.launches = 0
+    batched = compose_batch(images, dropon, *place, device="cuda")
+    batch_launches = ck.launches
+    singles = [mt.compose(im, dropon, *place, device="cuda")
+               for im in images]
+    for i, (a, b) in enumerate(zip(batched, singles)):
+        for c in range(a.num_components):
+            if not np.array_equal(a.coefs[c], b.coefs[c]):
+                raise AssertionError(f"compose_batch image {i} component "
+                                     f"{c} differs from a single compose")
+    log(f"compose_batch: {N_COMPOSE_BATCH} images identical to single "
+        f"compose calls on the card; {batch_launches} compose launches")
+    if batch_launches != images[0].num_components:
+        raise AssertionError("compose_batch: expected one launch per "
+                             "component")
+    return launches, batch_launches
+
+
 def main():
     from concurrent.futures import ThreadPoolExecutor
 
@@ -544,11 +839,13 @@ def main():
     max_err, times = phase_kernel()
     blend_err, blend_times = phase_blend()
     with ThreadPoolExecutor(max_workers=max(2, os.cpu_count() or 2)) as pool:
-        launches = phase_main_path(pool)
+        launches, corpus = phase_main_path(pool)
     bench = phase_kernel_bench()
     torch.cuda.synchronize()
     ck.launches = 0
     cli_launches = phase_cli()
+    grid_launches = phase_grid_session()
+    corpus_launches, batch_launches = phase_corpus(corpus)
     k_ms, p_ms = times[TIMED_NS[0]]
     bk_ms, bp_ms = blend_times[TIMED_NS[0]]
     print(json.dumps({"kernels": [{
@@ -562,7 +859,10 @@ def main():
         "plain_ms": p_ms,
         "launches_by_path": {"watermark_stream": launches,
                              "kernel_bench": bench["compose"],
-                             "cli": cli_launches},
+                             "cli": cli_launches,
+                             "grid_session": grid_launches,
+                             "corpus": corpus_launches,
+                             "compose_batch": batch_launches},
     }, {
         "name": "blend_blocks",
         "route": "cuda",

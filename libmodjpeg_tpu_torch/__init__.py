@@ -7,9 +7,13 @@ raw dropon ingestion, the surgical splice planner, the bit-exact compose
 arithmetic) is imported from libmodjpeg_tpu as it is; those modules import
 no JAX.  What ran on the TPU (dropon compilation, JPEG-dropon decoding to
 pixels, the compose step, the effects, the packed device step of the
-streaming pipeline) runs here on a torch ``device``: ``"cuda"`` by default,
+streaming pipeline, the huge-image GridSession and its Huffman-optimize
+histograms) runs here on a torch ``device``: ``"cuda"`` by default,
 ``"cpu"`` for the plain-torch path.  Nothing falls back from one to the
-other.  ``python -m libmodjpeg_tpu_torch.cli`` is the modjpeg CLI.
+other.  ``parallel`` holds the batch composer, the meshes of devices, the
+row-split grid helpers and ``GridSession``.  ``python -m
+libmodjpeg_tpu_torch.cli`` is the modjpeg CLI, and ``python -m
+libmodjpeg_tpu_torch.corpus`` the corpus runner.
 """
 
 from libmodjpeg_tpu.constants import (  # noqa: F401

@@ -1,19 +1,26 @@
-"""Batched compose on one device: many same-geometry images, one dropon
-(PyTorch port of libmodjpeg_tpu.parallel.batch).
+"""Batched compose: many same-geometry images, one dropon (PyTorch port
+of libmodjpeg_tpu.parallel.batch).
 
 Only the overlay footprint of each image travels to the device and back,
 packed batch-major: one host->device and one device->host transfer per
-batch.  The device step (``packed_compose``) restores the int8+exceptions
-uplink with one scatter, runs the compose kernel once per component and
-packs the downlink the same way.  On a CUDA device the step runs on the
-composer's own stream, fed from pinned host buffers, and a CUDA event marks
-the end of its device->host copy; on the CPU it runs synchronously.
+batch and device.  The device step (``packed_compose``) restores the
+int8+exceptions uplink with one scatter, runs the compose kernel once per
+component and packs the downlink the same way.  On a CUDA device the step
+runs on the composer's own stream for that device, fed from pinned host
+buffers, and a CUDA event marks the end of its device->host copy; on the
+CPU it runs synchronously.  With a stream mesh (several local cards, or an
+explicit ``mesh``) the packed rows of a batch are split into one equal
+slab per device of the mesh's "batch" axis.
+
+``put_batch``/``compose_arrays``/``compose_batch`` compose whole
+[N, H, W, 8, 8] image batches that stay on the device (split over the
+mesh's "batch" axis when one is given).
 """
 
 from __future__ import annotations
 
 import time
-from typing import Sequence
+from typing import Optional, Sequence
 
 import numpy as np
 import torch
@@ -21,7 +28,29 @@ import torch
 from libmodjpeg_tpu.model import CoefImage, Dropon
 
 from ..ops.compose import compose_blocks
-from ..state import compiled_dropon_to_torch
+from ..state import DeviceDropon, compiled_dropon_to_torch
+from .mesh import Mesh, ShardedRows, batch_sharding, shard_rows, stream_mesh
+
+
+def _compose_batch_component(grids: torch.Tensor, dropon_blocks: torch.Tensor,
+                             mask_pix: torch.Tensor, quant: torch.Tensor,
+                             row0: int, col0: int) -> torch.Tensor:
+    """Compose the footprint at (row0, col0) of every image of a batch, in
+    place (the JAX version donates its input) and returned.
+
+    grids: [N, H, W, 8, 8] int16; dropon_blocks/mask_pix: [h, w, 8, 8]
+    float32 (broadcast over the batch) or [N, h, w, 8, 8] per image; quant:
+    [8, 8].  All on one device.  The footprint slice is copied into a
+    contiguous region for compose_blocks and the result copied back.
+    """
+    n = grids.shape[0]
+    h, w = dropon_blocks.shape[-4:-2]
+    dropon_blocks = dropon_blocks.expand(n, h, w, 8, 8)
+    mask_pix = mask_pix.expand(n, h, w, 8, 8)
+    region = grids[:, row0:row0 + h, col0:col0 + w].contiguous()
+    grids[:, row0:row0 + h, col0:col0 + w] = compose_blocks(
+        region, dropon_blocks, mask_pix, quant)
+    return grids
 
 
 def _wirepack(flat: np.ndarray):
@@ -150,21 +179,31 @@ def packed_compose(meta, wire, qstack, drops, masks, down_cap):
 
 
 class BatchComposer:
-    """Reusable compiled-dropon compose over batches of same-geometry images
-    on one ``device``.
+    """Reusable compiled-dropon compose over batches of same-geometry images.
 
     Compiles the dropon once against the template's geometry (or takes a
     ready ``compiled`` CompiledDropon, from either package) and applies it
-    to any number of batches.
+    to any number of batches, on ``device`` (default "cuda").  With a
+    ``mesh`` the batches are split over its "batch" axis and ``device``
+    defaults to the mesh's first device (another device raises).  Without
+    one, a composer on a CUDA device splits the streaming path's batches
+    over every local card (``stream_mesh``) when there are several.
     """
 
     def __init__(self, template: CoefImage, dropon: Dropon, align: int = 0,
-                 offset_x: int = 0, offset_y: int = 0, *, device="cuda",
-                 compiled=None):
+                 offset_x: int = 0, offset_y: int = 0,
+                 mesh: Optional[Mesh] = None, *, device=None, compiled=None):
         from ..composer import compile_dropon, plan_placement
 
         self.template = template
-        self.device = torch.device(device)
+        self.mesh = mesh
+        if mesh is not None:
+            first = mesh.device_list[0]
+            if device is not None and torch.device(device) != first:
+                raise ValueError(f"device {device} is not the mesh's first "
+                                 f"device {first}")
+            device = first
+        self.device = torch.device("cuda" if device is None else device)
         p = plan_placement(template, dropon, align, offset_x, offset_y)
         self.noop = p.noop
         if self.noop:
@@ -177,6 +216,7 @@ class BatchComposer:
         self.block_x = p.block_x
         self.block_y = p.block_y
         self._dev = compiled_dropon_to_torch(self.cd, self.device)
+        self._dev_dropons = {self.device: self._dev}
         self._comp_shapes = list(self._dev.shapes)
         self._meta = self._dev.meta
         # per component (zero, DC-only, general) mask-block counts, for
@@ -193,9 +233,24 @@ class BatchComposer:
         # downlink exception capacity (power-of-two buckets, widened when a
         # batch overflows; overflowed rows restore from the raw output)
         self._down_cap = 32
-        self._stream = (torch.cuda.Stream(self.device)
-                        if self.device.type == "cuda" else None)
+        # the packed path's row split: the mesh's "batch" axis, or every
+        # local card; a single device runs the step unsplit
+        self._stream_mesh = mesh if mesh is not None else (
+            stream_mesh() if self.device.type == "cuda" else None)
+        self._shard_devices = (
+            [self.device] if self._stream_mesh is None
+            else list(batch_sharding(self._stream_mesh)))
+        self._streams = {d: torch.cuda.Stream(d)
+                         for d in self._shard_devices if d.type == "cuda"}
         self.last_dispatch_devices = 1
+
+    def _dropon_on(self, device) -> DeviceDropon:
+        """The compiled dropon on ``device``, moved there at first use."""
+        dd = self._dev_dropons.get(device)
+        if dd is None:
+            dd = compiled_dropon_to_torch(self.cd, device)
+            self._dev_dropons[device] = dd
+        return dd
 
     def compose_images(self, images: Sequence[CoefImage]) -> None:
         """In-place batched compose: only the overlay footprint travels to
@@ -228,54 +283,87 @@ class BatchComposer:
         qstack = np.concatenate(
             [np.stack([np.asarray(quants[i][c], np.int32).reshape(64)
                        for i in range(n)]) for c in range(ncomps)], axis=1)
+        if self._stream_mesh is not None:
+            shards = len(self._shard_devices)
+            n_pad = -(-n // shards) * shards
+            if n_pad != n:
+                flat = np.concatenate(
+                    [flat, np.zeros((n_pad - n, flat.shape[1]), np.int16)])
+                # q=1 keeps the padded rows' requant division well-defined
+                qstack = np.concatenate(
+                    [qstack,
+                     np.ones((n_pad - n, qstack.shape[1]), np.int32)])
         packed = _wirepack(flat)
         host = (packed if packed is not None else (flat,)) + (qstack,)
         cap = self._down_cap
-        drops, masks = self._dev.drops, self._dev.masks
-        if self._stream is None:
-            t = [torch.from_numpy(a) for a in host]
-            wire = tuple(t[:-1]) if packed is not None else t[0]
-            down, raw = packed_compose(self._meta, wire, t[-1], drops, masks,
-                                       cap)
-            return (down, raw, None, n, cap, ())
-        with torch.cuda.stream(self._stream):
-            t = [torch.from_numpy(a).pin_memory().to(self.device,
-                                                     non_blocking=True)
+        per = flat.shape[0] // len(self._shard_devices)
+        parts = [self._dispatch(dev, [a[k * per:(k + 1) * per] for a in host],
+                                packed is not None, cap)
+                 for k, dev in enumerate(self._shard_devices)]
+        self.last_dispatch_devices = len(parts)
+        return (parts, n, cap)
+
+    def _dispatch(self, dev, host, packed: bool, cap: int):
+        """Queue the device step for one slab of rows on ``dev``: host =
+        the wire arrays then qstack.  Returns (dev, downlink wire on the
+        host, raw output on dev, event or None, what must stay referenced
+        until the event has been waited on)."""
+        dd = self._dropon_on(dev)
+        stream = self._streams.get(dev)
+        if stream is None:
+            t = [torch.from_numpy(a).to(dev) for a in host]
+            wire = tuple(t[:-1]) if packed else t[0]
+            down, raw = packed_compose(self._meta, wire, t[-1], dd.drops,
+                                       dd.masks, cap)
+            return (dev, down.cpu(), raw, None, ())
+        with torch.cuda.stream(stream):
+            t = [torch.from_numpy(a).pin_memory().to(dev, non_blocking=True)
                  for a in host]
-            wire = tuple(t[:-1]) if packed is not None else t[0]
-            down_dev, raw = packed_compose(self._meta, wire, t[-1], drops,
-                                           masks, cap)
+            wire = tuple(t[:-1]) if packed else t[0]
+            down_dev, raw = packed_compose(self._meta, wire, t[-1], dd.drops,
+                                           dd.masks, cap)
             down = torch.empty(down_dev.shape, dtype=down_dev.dtype,
                                pin_memory=True)
             down.copy_(down_dev, non_blocking=True)
             event = torch.cuda.Event()
-            event.record(self._stream)
-        # the inputs and the device wire stay referenced until the event
-        # has been waited on
-        return (down, raw, event, n, cap, (t, down_dev))
+            event.record(stream)
+        return (dev, down, raw, event, (t, down_dev))
+
+    def _fetch_rows(self, dev, raw: torch.Tensor, idx: np.ndarray):
+        """Rows ``idx`` of a slab's raw output, copied to the host on the
+        slab's stream."""
+        index = torch.from_numpy(idx).to(raw.device)
+        stream = self._streams.get(dev)
+        if stream is None:
+            return raw[index].cpu().numpy()
+        with torch.cuda.stream(stream):
+            return raw[index].cpu().numpy()
 
     def _unpack_regions(self, pending) -> list:
         """Wait for a _pack_regions result: parts[c][i] = [h, w, 8, 8]."""
-        down, raw, event, n, cap, _keep = pending
-        if event is not None:
-            event.synchronize()  # releases the GIL while it waits
-        flat, counts = _downunpack(down.numpy(), cap)
+        parts, n, cap = pending
+        downs = []
+        for _dev, down, _raw, event, _keep in parts:
+            if event is not None:
+                event.synchronize()  # releases the GIL while it waits
+            downs.append(down.numpy())
+        flat, counts = _downunpack(
+            downs[0] if len(downs) == 1 else np.concatenate(downs), cap)
         over = np.nonzero(counts > cap)[0]
         if over.size:
             # rare: restore overflowed rows from the raw output still on the
             # device, then widen the capacity bucket for the next batches
-            idx = torch.from_numpy(over).to(raw.device)
-            if self._stream is None:
-                rows = raw[idx]
-            else:
-                with torch.cuda.stream(self._stream):
-                    rows = raw[idx].cpu()
-            flat[over] = rows.numpy()
+            per = parts[0][2].shape[0]
+            for k, (dev, _down, raw, _event, _keep) in enumerate(parts):
+                rows = over[(over >= k * per) & (over < (k + 1) * per)]
+                if rows.size:
+                    flat[rows] = self._fetch_rows(dev, raw, rows - k * per)
             cap = self._down_cap
             mx = int(counts.max())
             while cap < mx:
                 cap *= 2
             self._down_cap = cap
+        flat = flat[:n]
         off, parts = 0, []
         for (h, w) in self._comp_shapes:
             sz = h * w * 64
@@ -622,3 +710,58 @@ class BatchComposer:
                 th.join(timeout=2.0)
             if own_pool:
                 pool.shutdown(wait=False)
+
+    def put_batch(self, images: Sequence[CoefImage]) -> list:
+        """Stack host images into device batches: per component an
+        [N, H, W, 8, 8] int16 tensor on the composer's device, or with a
+        mesh a ShardedRows split over its "batch" axis (N zero-padded to a
+        multiple of its size)."""
+        batches = []
+        for c in range(self.template.num_components):
+            arr = np.stack([im.coefs[c] for im in images])
+            if self.mesh is not None:
+                batches.append(shard_rows(arr, batch_sharding(self.mesh)))
+            else:
+                batches.append(torch.from_numpy(arr).to(self.device))
+        return batches
+
+    def compose_arrays(self, comp_batches: Sequence) -> list:
+        """comp_batches[c]: the [N, H, W, 8, 8] int16 batch of component c
+        (a tensor, or a ShardedRows from put_batch), matching the template
+        geometry.  Composes the footprint of every image with the
+        template's quant tables, each slab on its own device, in place, and
+        returns the batches."""
+        if self.noop:
+            return list(comp_batches)
+        for c, (r0, c0, h, w) in enumerate(self._region_origins()):
+            grids = comp_batches[c]
+            slabs = (grids.slabs if isinstance(grids, ShardedRows)
+                     else [grids])
+            quant = np.asarray(self.template.quant_table_for(c), np.int32)
+            for slab in slabs:
+                dd = self._dropon_on(slab.device)
+                _compose_batch_component(
+                    slab, dd.drops[c].reshape(h, w, 8, 8),
+                    dd.masks[c].reshape(h, w, 8, 8),
+                    torch.from_numpy(quant).to(slab.device), r0, c0)
+        return list(comp_batches)
+
+
+def compose_batch(images: Sequence[CoefImage], dropon: Dropon, align: int = 0,
+                  offset_x: int = 0, offset_y: int = 0,
+                  mesh: Optional[Mesh] = None, *, device=None,
+                  compiled=None) -> list:
+    """One-shot batched compose of whole images on the device (split over
+    ``mesh``'s "batch" axis when given); returns new CoefImages."""
+    bc = BatchComposer(images[0], dropon, align, offset_x, offset_y, mesh,
+                       device=device, compiled=compiled)
+    results = bc.compose_arrays(bc.put_batch(images))
+    host = [r.numpy() if isinstance(r, ShardedRows) else r.cpu().numpy()
+            for r in results]
+    outs = []
+    for i, im in enumerate(images):
+        o = im.copy()
+        for c in range(o.num_components):
+            o.coefs[c] = host[c][i]
+        outs.append(o)
+    return outs

@@ -215,3 +215,142 @@ def test_compose_images_downlink_overflow_refetch(dropon):
     for a, b in zip(tout, jout):
         for ca, cb in zip(a.coefs, b.coefs):
             np.testing.assert_array_equal(ca, cb)
+
+
+# -- whole-image batches and the mesh split (mesh.py, compose_batch) ---------
+
+_CPU = torch.device("cpu")
+
+
+def _mesh8():
+    from libmodjpeg_tpu_torch.parallel import make_mesh
+
+    return make_mesh([_CPU] * 8)
+
+
+@pytest.fixture(scope="module")
+def perturbed():
+    """8 perturbed copies of the fixture image (test_parallel.py's batch)."""
+    base = mj.read_jpeg(os.path.join(FIXTURE_IMAGES, "image.jpg"))
+    rng = np.random.RandomState(0)
+    images = []
+    for _ in range(8):
+        im = base.copy()
+        for c in range(3):
+            m = rng.randint(0, 2, im.coefs[c].shape[:2])[..., None, None]
+            im.coefs[c] = (im.coefs[c] + m.astype(np.int16)).astype(np.int16)
+        images.append(im)
+    return images
+
+
+_BATCH_PLACE = (mj.ALIGN_BOTTOM | mj.ALIGN_RIGHT, -5, -3)
+
+
+@pytest.mark.parametrize("mesh", [False, True], ids=["one-device", "mesh8"])
+def test_compose_batch_matches_single(perturbed, dropon, mesh):
+    """compose_batch == one single compose per image, exactly."""
+    from libmodjpeg_tpu_torch import compose
+    from libmodjpeg_tpu_torch.parallel import compose_batch
+
+    kw = {"mesh": _mesh8()} if mesh else {"device": "cpu"}
+    batched = compose_batch(perturbed, dropon, *_BATCH_PLACE, **kw)
+    for im, b in zip(perturbed, batched):
+        s = compose(im, dropon, *_BATCH_PLACE, device="cpu")
+        for c in range(3):
+            np.testing.assert_array_equal(b.coefs[c], s.coefs[c])
+
+
+def test_compose_batch_equal_jax_with_carried_compile(perturbed, dropon):
+    from libmodjpeg_tpu.parallel import compose_batch as jcompose_batch
+    from libmodjpeg_tpu.parallel import make_mesh as jmake_mesh
+    from libmodjpeg_tpu_torch.parallel import compose_batch
+
+    cd = jbatch.BatchComposer(perturbed[0], dropon, *_BATCH_PLACE).cd
+    got = compose_batch(perturbed, dropon, *_BATCH_PLACE, _mesh8(),
+                        compiled=cd)
+    want = jcompose_batch(perturbed, dropon, *_BATCH_PLACE,
+                          mesh=jmake_mesh())
+    for a, b in zip(got, want):
+        for c in range(3):
+            np.testing.assert_array_equal(a.coefs[c], b.coefs[c])
+
+
+def test_put_batch_compose_arrays_reuse(perturbed, dropon):
+    """A composer applies to successive batches; put_batch splits 5 images
+    over the 8-slab mesh with zero padding; compose_arrays equals JAX's on
+    the carried compiled dropon."""
+    from libmodjpeg_tpu.parallel import make_mesh as jmake_mesh
+    from libmodjpeg_tpu_torch.parallel.mesh import ShardedRows
+
+    place = (mj.ALIGN_TOP | mj.ALIGN_LEFT, 7, 9)
+    base = perturbed[0]
+    jbc = jbatch.BatchComposer(base, dropon, *place, mesh=jmake_mesh())
+    tbc = tbatch.BatchComposer(base, dropon, *place, _mesh8(),
+                               compiled=jbc.cd)
+    single = base.copy()       # a single compose on the same compiled dropon
+    tbatch.BatchComposer(base, dropon, *place, device="cpu",
+                         compiled=jbc.cd).compose_images([single])
+    for n in (8, 5):
+        batches = tbc.put_batch([base] * n)
+        assert all(isinstance(b, ShardedRows) and len(b.slabs) == 8
+                   and b.rows == n for b in batches)
+        out = [b.numpy() for b in tbc.compose_arrays(batches)]
+        for c in range(3):
+            assert out[c].shape[0] == n
+            for i in range(n):
+                np.testing.assert_array_equal(out[c][i], single.coefs[c])
+    jout = jbc.compose_arrays(jbc.put_batch(perturbed))
+    tout = tbc.compose_arrays(tbc.put_batch(perturbed))
+    for c in range(3):
+        np.testing.assert_array_equal(tout[c].numpy(), np.asarray(jout[c]))
+
+
+def test_compose_arrays_one_device_tensors(perturbed, dropon):
+    """Without a mesh, put_batch gives one [N, H, W, 8, 8] tensor per
+    component and compose_arrays updates it in place."""
+    bc = tbatch.BatchComposer(perturbed[0], dropon, *_BATCH_PLACE,
+                              device="cpu")
+    batches = bc.put_batch(perturbed)
+    assert batches[0].shape == (8,) + perturbed[0].coefs[0].shape
+    out = bc.compose_arrays(batches)
+    assert out[0] is batches[0]
+    ref = [im.copy() for im in perturbed]
+    bc.compose_images(ref)
+    for c in range(3):
+        for i in range(8):
+            np.testing.assert_array_equal(out[c][i].numpy(), ref[i].coefs[c])
+
+
+def test_mesh_and_device_must_agree(perturbed, dropon):
+    with pytest.raises(ValueError):
+        tbatch.BatchComposer(perturbed[0], dropon, *_BATCH_PLACE, _mesh8(),
+                             device="cuda")
+
+
+@pytest.mark.parametrize("corpus", ["fixture", "heavy"])
+def test_stream_split_over_mesh_bytes_identical(corpora, dropon, corpus):
+    """BatchComposer(mesh=[cpu] * 8) on 13 files splits each batch's rows
+    into 8 slabs (3 zero rows with q = 1 of padding) and merges them: the
+    stream bytes equal the one-device path's.  The heavy corpus with a
+    small downlink capacity makes rows overflow in several slabs, so the
+    refetch from each slab's raw output runs too."""
+    if corpus == "fixture":
+        datas = corpora["fixture"][:1] * 13
+        place, cap = _PLACE, 32
+    else:
+        datas = [codec.encode(im) for im in _heavy_images(13)]
+        place, cap = (mj.ALIGN_TOP | mj.ALIGN_LEFT, 0, 0), 8
+    tmpl = codec.decode(datas[0])
+    one = tbatch.BatchComposer(tmpl, dropon, *place, device="cpu")
+    split = tbatch.BatchComposer(tmpl, dropon, *place, _mesh8(),
+                                 compiled=one.cd)
+    one._down_cap = split._down_cap = cap
+    want = list(one.watermark_stream(iter(datas), batch=13,
+                                     surgical=False))
+    got = list(split.watermark_stream(iter(datas), batch=13,
+                                      surgical=False))
+    assert split.last_dispatch_devices == 8
+    assert one.last_dispatch_devices == 1
+    assert got == want
+    if corpus == "heavy":
+        assert split._down_cap > 8

@@ -1,5 +1,6 @@
-"""The CUDA kernel's compose and blend modes and the pixel decode on the
-card (marked ``cuda``; skips without a GPU).  This file imports no JAX, so it also runs on a machine without it:
+"""The CUDA kernel's compose and blend modes, the pixel decode, the device
+histogram and the grid paths on the card (marked ``cuda``; skips without a
+GPU).  This file imports no JAX, so it also runs on a machine without it:
 
     python -m pytest --noconftest -p no:cacheprovider -m cuda \
         tests/test_torch_cuda.py
@@ -165,3 +166,116 @@ def test_batch_composer_on_card_matches_cpu(cuda):
         for ca, cb in zip(a.coefs, b.coefs):
             dd = np.abs(ca.astype(int) - cb.astype(int))
             assert dd.max() <= 1 and (dd != 0).mean() < 0.005
+
+
+def _random_420(seed, mcus_w, mcus_h):
+    """A 4:2:0 CoefImage with sparse AC and dense DC (the shape of
+    tests/test_fuzz_roundtrip.py random_image, built here without JAX)."""
+    from libmodjpeg_tpu import constants as C
+    from libmodjpeg_tpu.model import CoefImage, ComponentInfo, Sampling
+
+    rng = np.random.RandomState(seed)
+    comps, coefs = [], []
+    for c, (sh, sv) in enumerate([(2, 2), (1, 1), (1, 1)]):
+        pw, ph = mcus_w * sh, mcus_h * sv
+        a = np.zeros((ph, pw, 8, 8), np.int16)
+        nz = rng.rand(ph, pw, 8, 8) < 0.15
+        a[nz] = rng.randint(-1023, 1024, nz.sum())
+        a[..., 0, 0] = rng.randint(-1024, 1024, (ph, pw))
+        comps.append(ComponentInfo(c + 1, sh, sv, 0 if c == 0 else 1,
+                                   pw, ph, pw, ph))
+        coefs.append(a)
+    return CoefImage(
+        width=mcus_w * 16, height=mcus_h * 16, jpeg_color_space=C.JCS_YCbCr,
+        components=comps, coefs=coefs,
+        # q >= 8 keeps a composed DC inside the encoder's range
+        quant_tables={0: rng.randint(8, 64, (8, 8)).astype(np.uint16),
+                      1: rng.randint(8, 64, (8, 8)).astype(np.uint16)},
+        sampling=Sampling(2, 2))
+
+
+@pytest.mark.parametrize("ri", [0, 5])
+def test_symbol_freqs_on_card_equals_cpu(cuda, ri):
+    """The device histogram counts exactly (integer ops), on a frame large
+    enough for several counting chunks."""
+    from libmodjpeg_tpu_torch.ops import histogram as th
+
+    img = _random_420(ri, 96, 90)
+    c0 = img.components[0]
+    mw = c0.padded_width_in_blocks // c0.h_samp
+    got = th.symbol_freqs(img.coefs, img.components, mw, ri, device=cuda)
+    want = th.symbol_freqs(img.coefs, img.components, mw, ri, device="cpu")
+    for k in want:
+        np.testing.assert_array_equal(got[k], want[k])
+
+
+def _fixture_logo():
+    import os
+
+    import libmodjpeg_tpu_torch as mt
+
+    return mt.read_dropon(os.path.join(
+        os.path.dirname(os.path.abspath(__file__)), "fixtures",
+        "dropon.png"), device="cpu")
+
+
+def _check_grid(got, want, inside):
+    for c, m in enumerate(inside):
+        np.testing.assert_array_equal(got.coefs[c][~m], want.coefs[c][~m])
+        d = np.abs(got.coefs[c][m].astype(int) - want.coefs[c][m])
+        assert d.max() <= 1 and (d != 0).mean() < 0.005
+
+
+def test_grid_session_on_card_matches_cpu(cuda):
+    """Effects + compose + optimized encode on the card: identical to the
+    CPU chain outside the footprint (the compiled dropon carried across),
+    +-1 on under 0.5% inside, bytes equal to the host optimize pass."""
+    import libmodjpeg_tpu_torch as mt
+    from libmodjpeg_tpu import codec
+    from libmodjpeg_tpu_torch import composer
+    from libmodjpeg_tpu_torch.parallel import BatchComposer, GridSession
+
+    img = _random_420(7, 40, 27)
+    logo = _fixture_logo()
+    p = composer.plan_placement(img, logo, mt.ALIGN_CENTER, 5, -3)
+    cd = composer.compile_dropon(logo, img, p.blockoffset_x, p.blockoffset_y,
+                                 p.crop_x, p.crop_y, p.crop_w, p.crop_h,
+                                 device=cuda)
+    sessions = {}
+    for dev in (cuda, "cpu"):
+        s = GridSession(img, device=dev)
+        s.effect("luminance", value=60).effect("tint", cb_value=25,
+                                               cr_value=-9)
+        before = ck.launches
+        s.compose(logo, mt.ALIGN_CENTER, 5, -3, compiled=cd)
+        s.effect("pixelate").block_until_ready()
+        assert ck.launches == before + (3 if dev is cuda else 0)
+        sessions[str(dev)] = s
+    got = sessions[str(cuda)].to_image()
+    bc = BatchComposer(img, logo, mt.ALIGN_CENTER, 5, -3, device="cpu",
+                       compiled=cd)
+    inside = [np.zeros(a.shape[:2], bool) for a in img.coefs]
+    for c, (r0, c0, h, w) in enumerate(bc._region_origins()):
+        inside[c][r0:r0 + h, c0:c0 + w] = True
+    _check_grid(got, sessions["cpu"].to_image(), inside)
+    data = sessions[str(cuda)].to_jpeg(options=mt.OPTION_OPTIMIZE,
+                                       restart_interval=4)
+    assert data == codec.encode(got, options=mt.OPTION_OPTIMIZE,
+                                restart_interval=4)
+
+
+def test_compose_sharded_one_card_mesh(cuda):
+    """compose_sharded over a one-card mesh == the single compose on the
+    card (the same kernel on the same footprint)."""
+    import libmodjpeg_tpu_torch as mt
+    from libmodjpeg_tpu_torch.parallel import compose_sharded, make_mesh
+
+    img = _random_420(11, 24, 19)
+    logo = _fixture_logo()
+    mesh = make_mesh([torch.device("cuda", 0)])
+    before = ck.launches
+    got = compose_sharded(img, logo, mt.ALIGN_CENTER, 3, -7, mesh)
+    assert ck.launches == before + 3
+    want = mt.compose(img, logo, mt.ALIGN_CENTER, 3, -7, device=cuda)
+    for a, b in zip(got.coefs, want.coefs):
+        np.testing.assert_array_equal(a, b)

@@ -38,6 +38,19 @@ for flags in ([], ["-X"]):
     assert rc == 0, rc
     with open({out!r}, "rb") as f:
         assert f.read(2) == b"\xff\xd8"
+# the huge-image, histogram, mesh and corpus modules, and the corpus CLI
+from libmodjpeg_tpu_torch.ops import histogram  # noqa: F401
+from libmodjpeg_tpu_torch.parallel import grid, mesh, session  # noqa: F401
+from libmodjpeg_tpu_torch import corpus
+import contextlib, io, json
+buf = io.StringIO()
+with contextlib.redirect_stdout(buf):
+    rc = corpus.main(["--inputs", {img!r}, "--out", {corpus_out!r},
+                      "--dropon", {png!r}, "--luminance", "10",
+                      "--optimize"], device="cpu")
+assert rc == 0 and json.loads(buf.getvalue())["files_done"] == 1, rc
+sess = session.GridSession(img, device="cpu").effect("pixelate")
+assert sess.to_jpeg(options=mt.OPTION_OPTIMIZE)[:2] == b"\xff\xd8"
 leaked = sorted(m for m in sys.modules
                 if (m == "jax" or m.startswith("jax.")) and sys.modules[m])
 assert not leaked, leaked
@@ -54,7 +67,8 @@ def test_port_composes_with_jax_blocked(tmp_path):
                             png=os.path.join(FIXTURE_IMAGES, "dropon.png"),
                             jpg=os.path.join(FIXTURE_IMAGES, "dropon.jpg"),
                             mask=os.path.join(FIXTURE_IMAGES, "mask.jpg"),
-                            out=str(tmp_path / "out.jpg"))
+                            out=str(tmp_path / "out.jpg"),
+                            corpus_out=str(tmp_path / "corpus"))
     env = dict(os.environ)
     env.pop("PYTHONPATH", None)
     r = subprocess.run([sys.executable, "-c", script], capture_output=True,
@@ -98,5 +112,7 @@ def test_no_module_of_the_port_imports_jax():
                     if _reaches_jax(m):
                         found.append(f"{path}:{node.lineno} {m}")
     assert not found, found
-    assert {"cli.py", "dropon.py", "effects.py", "pixels.py",
-            "ops/effects.py", "scripts/kernel_bench.py"} <= scanned, scanned
+    assert {"cli.py", "corpus.py", "dropon.py", "effects.py", "pixels.py",
+            "ops/effects.py", "ops/histogram.py", "parallel/grid.py",
+            "parallel/mesh.py", "parallel/session.py",
+            "scripts/kernel_bench.py"} <= scanned, scanned
