@@ -51,7 +51,18 @@ Phases, each of which raises on failure:
    (luminance + dropon).  Checks 0 failures, card outputs against CPU
    outputs (identical outside the footprint, +-1 on under 0.5% inside,
    byte-identical wherever the coefficients are); then compose_batch on 8
-   of the images against 8 single compose calls on the card (identical).
+   of the images against 8 single compose calls on the card (identical);
+9. the betterjpeg script (libmodjpeg_tpu_torch.scripts.betterjpeg) on a
+   6000x4000 4:2:0 q92 photo and an edited PNG of it (a noise patch, a
+   flat redaction box, a thin white diagonal across the frame), so the
+   compose is one packed row holding every block of the frame.  Checks
+   to_pixels on the card == on the CPU, exit status 0 on the card and with
+   device="cpu", 3 compose launches on the card, every block outside the
+   edited MCUs identical to the input in both outputs, card vs CPU within
+   +-1 on under 0.5% inside, and a no-change run that launches nothing and
+   keeps every coefficient; then replays the compose step piece by piece
+   (wire taken, downlink rows refetched, device time per step) and holds
+   its Y launch (375,000 blocks) against its plain version on the card.
 
 Prints one JSON line describing the kernels, and as the last line
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
@@ -84,6 +95,8 @@ BIG_MP = 100.0        # tests/test_bigimage.py with MJT_BIG=1
 BIG_RESTART = 64
 EFFECT_ROUNDS = 6     # bench.py grid_effects: KG
 N_COMPOSE_BATCH = 8
+BJ_W, BJ_H = 6000, 4000   # a 24 MP photo
+BJ_QUALITY = 92
 FIXTURES = os.path.join(REPO, "tests", "fixtures")
 WORK = os.path.join(REPO, "build", "chip_smoke")
 
@@ -829,6 +842,284 @@ def phase_corpus(datas):
     return launches, batch_launches
 
 
+# -- phase 9: betterjpeg on a whole 24 MP frame ----------------------------
+
+def write_png(path, rgb):
+    """RGB uint8 [H, W, 3] -> an 8-bit RGB PNG, filter type 0 on every row
+    (the standard library only: the card's machine has no PIL)."""
+    import struct
+    import zlib
+
+    h, w, _ = rgb.shape
+    raw = np.zeros((h, 1 + 3 * w), np.uint8)
+    raw[:, 1:] = rgb.reshape(h, 3 * w)
+
+    def chunk(kind, body):
+        return (struct.pack(">I", len(body)) + kind + body
+                + struct.pack(">I", zlib.crc32(kind + body)))
+
+    with open(path, "wb") as f:
+        f.write(b"\x89PNG\r\n\x1a\n"
+                + chunk(b"IHDR", struct.pack(">IIBBBBB", w, h, 8, 2, 0, 0, 0))
+                + chunk(b"IDAT", zlib.compress(raw.tobytes(), 1))
+                + chunk(b"IEND", b""))
+
+
+def _bj_edits(pix, rng):
+    """Three retouching edits on a copy of ``pix``, placed in proportion to
+    the frame; on 6000x4000: a 1200x800 patch of uniform noise at (2400,
+    1600), a flat (16, 16, 16) redaction box of 320x240 at (240, 3600), and
+    a 3-pixel-wide white diagonal stroke across the whole frame (many MCUs
+    touched sparsely, partial chroma masks)."""
+    h, w, _ = pix.shape
+    e = pix.copy()
+    e[2 * h // 5:3 * h // 5, 2 * w // 5:3 * w // 5] = rng.randint(
+        0, 256, (3 * h // 5 - 2 * h // 5, 3 * w // 5 - 2 * w // 5, 3))
+    y, x = 9 * h // 10, w // 25
+    e[y:y + 6 * h // 100, x:x + 4 * w // 75] = 16
+    rows = np.arange(h)
+    for k in range(-1, 2):
+        e[rows, np.clip(rows * w // h + k, 0, w - 1)] = 255
+    return e
+
+
+def _edited_mcus(img, changed):
+    """Per component, True on the blocks of every MCU that holds a changed
+    pixel."""
+    s = img.sampling
+    mh, mw = 8 * s.max_v_samp, 8 * s.max_h_samp
+    h, w = changed.shape
+    mcus = changed.reshape(h // mh, mh, w // mw, mw).any(axis=(1, 3))
+    return [np.kron(mcus, np.ones((ci.v_samp, ci.h_samp), bool))
+            for ci in img.components]
+
+
+def _bj_compose_breakdown(img, dropon):
+    """Replays the compose step of a betterjpeg run piece by piece on the
+    card (the same BatchComposer calls mt.compose makes) to show where its
+    time goes; then holds the Y launch, at its real operands, against its
+    plain version."""
+    import libmodjpeg_tpu_torch as mt
+    from libmodjpeg_tpu_torch import composer
+    from libmodjpeg_tpu_torch.ops import compose_kernel as ck
+    from libmodjpeg_tpu_torch.ops.compose import mask_pix_np
+    from libmodjpeg_tpu_torch.parallel import batch as tbatch
+
+    tl = mt.ALIGN_TOP | mt.ALIGN_LEFT
+    t0 = time.perf_counter()
+    p = composer.plan_placement(img, dropon, tl, 0, 0)
+    cd = composer.compile_dropon(dropon, img, p.blockoffset_x,
+                                 p.blockoffset_y, p.crop_x, p.crop_y,
+                                 p.crop_w, p.crop_h, device="cuda")
+    t_compile = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    for w in cd.alpha_weights:
+        mask_pix_np(w)
+    t_mask = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    bc = tbatch.BatchComposer(img, dropon, tl, 0, 0, device="cuda",
+                              compiled=cd)
+    t_setup = time.perf_counter() - t0
+    origins = bc._region_origins()
+    regions = [[img.coefs[c][r0:r0 + h, c0:c0 + w]
+                for c, (r0, c0, h, w) in enumerate(origins)]]
+    quants = [[img.quant_table_for(c) for c in range(len(origins))]]
+    log(f"betterjpeg compose, replayed: footprint {bc._meta} blocks per "
+        f"component; compile_dropon {t_compile:.3f} s (of which host "
+        f"mask_pix_np {t_mask:.3f} s when run alone), BatchComposer setup "
+        f"{t_setup:.3f} s")
+
+    flat = np.concatenate([np.asarray(r, np.int16).reshape(1, -1)
+                           for r in regions[0]], axis=1)
+    exc_up = int((flat != np.clip(flat, -128, 127)).sum())
+    t0 = time.perf_counter()
+    packed = tbatch._wirepack(flat)
+    t_wire = time.perf_counter() - t0
+    wire = ("int16 (raw)" if packed is None else
+            f"int8 + exceptions (cap {packed[1].shape[1]})")
+    cap = bc._down_cap
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    pending = bc._pack_regions(regions, quants)
+    t_dispatch = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    parts = bc._unpack_regions(pending)
+    t_unpack = time.perf_counter() - t0
+    out = np.concatenate([a.reshape(1, -1) for a in parts], axis=1)
+    exc_down = int((out != np.clip(out, -128, 127)).sum())
+    refetched = int(exc_down > cap)
+    dev, _down, raw, _event, _keep = pending[0][0]
+    t0 = time.perf_counter()
+    bc._fetch_rows(dev, raw, np.arange(1))
+    t_refetch = time.perf_counter() - t0
+    log(f"betterjpeg row: {flat.shape[1]} coefficients; uplink "
+        f"{exc_up} exceptions ({exc_up / flat.shape[1]:.4%}), wire {wire}, "
+        f"_wirepack {t_wire:.3f} s on the host; _pack_regions (pack + "
+        f"pinned upload + dispatch) {t_dispatch:.3f} s; downlink "
+        f"{exc_down} exceptions against capacity {cap}: {refetched} row "
+        f"refetched ({raw.numel() * raw.element_size()} B); "
+        f"_unpack_regions {t_unpack:.3f} s, of which a refetch alone "
+        f"{t_refetch:.3f} s")
+
+    # the device step piece by piece (CUDA events, 5 calls each)
+    dd = bc._dev
+    up = [torch.from_numpy(a).cuda() for a in (packed or (flat,))]
+    qstack = torch.from_numpy(np.concatenate(
+        [np.asarray(q, np.int32).reshape(1, 64) for q in quants[0]],
+        axis=1)).cuda()
+    body_in = tbatch._restore_uplink(*up) if packed else up[0]
+    body_out = tbatch._compose_body(bc._meta, body_in, qstack, dd.drops,
+                                    dd.masks)
+    steps = {
+        "_restore_uplink": (lambda: tbatch._restore_uplink(*up)
+                            if packed else None),
+        "_compose_body (3 launches)": lambda: tbatch._compose_body(
+            bc._meta, body_in, qstack, dd.drops, dd.masks),
+        "_pack_down": lambda: tbatch._pack_down(body_out, cap),
+    }
+    step_ms = {k: _time_ms(f, (), 5) for k, f in steps.items()}
+    log("betterjpeg device step: " + ", ".join(
+        f"{k} {v:.3f} ms" for k, v in step_ms.items()))
+
+    # the Y launch at its real operands against its plain version
+    n = bc._meta[0]
+    region = torch.from_numpy(np.array(regions[0][0], np.int16).reshape(
+        n, 64)).cuda()
+    q = torch.from_numpy(np.asarray(quants[0][0], np.int32).reshape(
+        1, 64)).cuda().expand(n, 64).contiguous()
+    ops = (region, dd.drops[0], dd.masks[0], q)
+    got = ck.compose_blocks_cuda(*ops)
+    ref = ck.compose_blocks_ref(*ops)
+    zero = (dd.masks[0] == 0).all(dim=1)
+    if not torch.equal(got[zero], region[zero]):
+        raise AssertionError("betterjpeg Y launch: zero-mask blocks moved")
+    d = (got.to(torch.int32) - ref.to(torch.int32)).abs()
+    err, share = int(d.max()), float((d != 0).float().mean())
+    if err > 1 or share >= MAX_DIFF_SHARE:
+        raise AssertionError(f"betterjpeg Y launch: max|d|={err}, "
+                             f"{share:.6f} differ")
+    p1 = _time_ms(ck.compose_blocks_ref, ops, 10)
+    k1 = _time_ms(ck.compose_blocks_cuda, ops, 10)
+    k2 = _time_ms(ck.compose_blocks_cuda, ops, 10)
+    p2 = _time_ms(ck.compose_blocks_ref, ops, 10)
+    log(f"betterjpeg Y launch N={n}: {int(zero.sum())} zero-mask blocks "
+        f"exact; vs plain on the card max|d|={err} differing={share:.6f}; "
+        f"kernel {k1:.4f}/{k2:.4f} ms, plain {p1:.4f}/{p2:.4f} ms")
+
+
+def phase_betterjpeg():
+    import contextlib
+    import io
+
+    from libmodjpeg_tpu import codec
+    from libmodjpeg_tpu_torch.encode_pixels import from_pixels
+    from libmodjpeg_tpu_torch.ops import compose_kernel as ck
+    from libmodjpeg_tpu_torch.pixels import to_pixels
+    from libmodjpeg_tpu_torch.scripts import betterjpeg
+
+    os.makedirs(WORK, exist_ok=True)
+    rng = np.random.RandomState(BJ_QUALITY)
+    t_phase = t0 = time.perf_counter()
+    src = os.path.join(WORK, "bj_in.jpg")
+    with open(src, "wb") as f:
+        f.write(codec.encode(from_pixels(
+            make_test_image(rng, BJ_W, BJ_H), quality=BJ_QUALITY,
+            subsampling="420", device="cuda")))
+    with open(src, "rb") as f:
+        img = codec.decode(f.read())
+    log(f"betterjpeg input: {BJ_W}x{BJ_H} 4:2:0 q{BJ_QUALITY}, "
+        f"{os.path.getsize(src)} B, made in {time.perf_counter() - t0:.1f} s")
+
+    t0 = time.perf_counter()
+    pix = to_pixels(img, device="cuda")
+    t_card = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    pix_cpu = to_pixels(img, device="cpu")
+    t_cpu = time.perf_counter() - t0
+    n = int((pix != pix_cpu).sum())
+    if n:
+        raise AssertionError(f"betterjpeg: to_pixels card vs cpu: {n} "
+                             f"samples differ")
+    log(f"betterjpeg: to_pixels on the card == on the cpu, all {pix.size} "
+        f"samples (card {t_card:.3f} s, cpu {t_cpu:.3f} s)")
+
+    edited = _bj_edits(pix, rng)
+    paths = {"edited": os.path.join(WORK, "bj_edited.png"),
+             "same": os.path.join(WORK, "bj_same.png")}
+    write_png(paths["edited"], edited)
+    write_png(paths["same"], pix)
+    changed, dropon = betterjpeg.edit_dropon(pix, edited)
+    inside = _edited_mcus(img, changed)
+    y_blocks = int(changed.reshape(BJ_H // 8, 8, BJ_W // 8, 8).any(
+        axis=(1, 3)).sum())
+    mcus = int(inside[1].sum())
+    log(f"betterjpeg edit: {changed.mean():.4%} of pixels changed; "
+        f"{mcus} of {inside[1].size} MCUs touched; {y_blocks} Y blocks + "
+        f"{2 * mcus} chroma blocks hold a changed pixel")
+
+    outs, launches, peak = {}, 0, 0
+    for dev in ("cuda", "cpu"):
+        out = os.path.join(WORK, f"bj_out_{dev}.jpg")
+        stages = {}
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        ck.launches = 0
+        t0 = time.perf_counter()
+        rc = betterjpeg.main([src, paths["edited"], out], device=dev,
+                             timings=stages)
+        wall = time.perf_counter() - t0
+        launched = ck.launches
+        if dev == "cuda":
+            launches, peak = launched, torch.cuda.max_memory_allocated()
+        log(f"betterjpeg {dev}: rc={rc} {wall:.3f} s, stages "
+            + ", ".join(f"{k} {v:.3f} s" for k, v in stages.items())
+            + f"; {launched} compose launches")
+        if rc != 0:
+            raise AssertionError(f"betterjpeg {dev} returned {rc}")
+        want = 3 if dev == "cuda" else 0
+        if launched != want:
+            raise AssertionError(f"betterjpeg {dev}: {launched} compose "
+                                 f"launches, expected {want}")
+        with open(out, "rb") as f:
+            outs[dev] = codec.decode(f.read())
+    log(f"betterjpeg: peak device memory of the card run {peak} B")
+
+    for dev, out in outs.items():
+        for c, m in enumerate(inside):
+            if not np.array_equal(out.coefs[c][~m], img.coefs[c][~m]):
+                raise AssertionError(f"betterjpeg {dev}: blocks outside the "
+                                     f"edited MCUs moved (component {c})")
+    differing, total = _compare_coefs(outs["cuda"], outs["cpu"], inside,
+                                      "betterjpeg")
+    log(f"betterjpeg: both outputs identical to the input outside the "
+        f"edited MCUs; card vs cpu {differing} of {total} coefficients "
+        f"inside differ (max 1)")
+
+    same_out = os.path.join(WORK, "bj_same_out.jpg")
+    buf = io.StringIO()
+    ck.launches = 0
+    with contextlib.redirect_stdout(buf):
+        rc = betterjpeg.main([src, paths["same"], same_out], device="cuda")
+    if rc != 0 or not buf.getvalue().startswith("no changes detected"):
+        raise AssertionError(f"betterjpeg no-change run: rc={rc} "
+                             f"{buf.getvalue()!r}")
+    if ck.launches:
+        raise AssertionError(f"betterjpeg no-change run launched "
+                             f"{ck.launches} times")
+    with open(same_out, "rb") as f:
+        same = codec.decode(f.read())
+    for a, b in zip(same.coefs, img.coefs):
+        if not np.array_equal(a, b):
+            raise AssertionError("betterjpeg no-change run moved "
+                                 "coefficients")
+    log(f"betterjpeg no-change run: {buf.getvalue().strip()!r}, 0 launches, "
+        f"coefficients identical to the input")
+
+    _bj_compose_breakdown(img, dropon)
+    log(f"betterjpeg phase: {time.perf_counter() - t_phase:.1f} s")
+    return launches
+
+
 def main():
     from concurrent.futures import ThreadPoolExecutor
 
@@ -846,6 +1137,7 @@ def main():
     cli_launches = phase_cli()
     grid_launches = phase_grid_session()
     corpus_launches, batch_launches = phase_corpus(corpus)
+    bj_launches = phase_betterjpeg()
     k_ms, p_ms = times[TIMED_NS[0]]
     bk_ms, bp_ms = blend_times[TIMED_NS[0]]
     print(json.dumps({"kernels": [{
@@ -862,7 +1154,8 @@ def main():
                              "cli": cli_launches,
                              "grid_session": grid_launches,
                              "corpus": corpus_launches,
-                             "compose_batch": batch_launches},
+                             "compose_batch": batch_launches,
+                             "betterjpeg": bj_launches},
     }, {
         "name": "blend_blocks",
         "route": "cuda",

@@ -11,11 +11,14 @@ a device-side sleep that lets the host enqueue the whole window before it
 starts, so host launch overhead stays out of the device time.  Per size it
 prints one line:
 
-    n=N: plain Tus/blend cuda Tus/blend fused Tus/compose [G GB/s = P% of
-    the R GB/s elementwise-roofline]  speedup xS
+    n=N: plain Tus/blend cuda Tus/blend fused Tus/compose [G GB/s = Rx
+    the plain chain's P GB/s]  speedup xS
 
-where R is the plain chain's own traffic rate (three f32 reads and one f32
-write per coefficient), as in the JAX package's scripts/kernel_bench.py.
+where G is the fused compose's traffic rate and P the plain chain's (three
+f32 reads and one f32 write per coefficient per blend): the quantity that
+the JAX package's scripts/kernel_bench.py calls its elementwise roofline.
+It is a ratio of two measured rates, not a roofline share; a roofline
+share needs the card's own measured peak, which this bench does not take.
 It needs a CUDA GPU and raises without one; there is no CPU run.
 """
 
@@ -114,11 +117,11 @@ def main(argv=None) -> dict:
                      args.reps) / (args.reps * args.chain)
         times["fused"] = dt
         gbps = BYTES_PER_BLOCK * n / dt / 1e9
-        # plain path traffic: 3 f32 reads + 1 f32 write per coefficient
-        roof = 4 * 4 * n * 64 / times["plain"] / 1e9
+        # plain chain traffic: 3 f32 reads + 1 f32 write per coefficient
+        plain_gbps = 4 * 4 * n * 64 / times["plain"] / 1e9
         line += (f" fused {dt*1e6:.0f}us/compose [{gbps:.0f} GB/s"
-                 f" = {100*gbps/roof:.0f}% of the {roof:.0f} GB/s"
-                 f" elementwise-roofline]")
+                 f" = {gbps/plain_gbps:.2f}x the plain chain's"
+                 f" {plain_gbps:.0f} GB/s]")
         line += f"  speedup x{times['plain']/times['cuda']:.2f}"
         print(line, flush=True)
         results[n] = times

@@ -1,6 +1,6 @@
 """The CUDA kernel's compose and blend modes, the pixel decode, the device
-histogram and the grid paths on the card (marked ``cuda``; skips without a
-GPU).  This file imports no JAX, so it also runs on a machine without it:
+histogram, the grid paths and the betterjpeg script on the card (marked
+``cuda``; skips without a GPU).  This file imports no JAX, so it also runs on a machine without it:
 
     python -m pytest --noconftest -p no:cacheprovider -m cuda \
         tests/test_torch_cuda.py
@@ -262,6 +262,66 @@ def test_grid_session_on_card_matches_cpu(cuda):
                                        restart_interval=4)
     assert data == codec.encode(got, options=mt.OPTION_OPTIMIZE,
                                 restart_interval=4)
+
+
+def write_png(path, rgb):
+    """RGB uint8 [H, W, 3] -> an 8-bit RGB PNG, filter type 0 on every row
+    (the standard library only: the card's machine has no PIL)."""
+    import struct
+    import zlib
+
+    h, w, _ = rgb.shape
+    raw = np.zeros((h, 1 + 3 * w), np.uint8)
+    raw[:, 1:] = rgb.reshape(h, 3 * w)
+
+    def chunk(kind, body):
+        return (struct.pack(">I", len(body)) + kind + body
+                + struct.pack(">I", zlib.crc32(kind + body)))
+
+    with open(path, "wb") as f:
+        f.write(b"\x89PNG\r\n\x1a\n"
+                + chunk(b"IHDR", struct.pack(">IIBBBBB", w, h, 8, 2, 0, 0, 0))
+                + chunk(b"IDAT", zlib.compress(raw.tobytes(), 1))
+                + chunk(b"IEND", b""))
+
+
+def test_betterjpeg_on_card_matches_cpu(cuda, tmp_path):
+    """The betterjpeg script on the fixture with a red box, on the card and
+    with device="cpu": 3 compose launches on the card, coefficients
+    identical outside the edited MCUs in both outputs, +-1 on under 0.5%
+    inside."""
+    import os
+
+    from libmodjpeg_tpu import codec
+    from libmodjpeg_tpu_torch.pixels import to_pixels
+    from libmodjpeg_tpu_torch.scripts import betterjpeg
+
+    src = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                       "fixtures", "image.jpg")
+    with open(src, "rb") as f:
+        img = codec.decode(f.read())
+    pix = to_pixels(img, device=cuda).copy()
+    pix[40:70, 60:140] = [255, 0, 0]
+    edited = str(tmp_path / "edited.png")
+    write_png(edited, pix)
+    outs = {}
+    for dev in (cuda, "cpu"):
+        out = str(tmp_path / f"out_{dev}.jpg")
+        before = ck.launches
+        assert betterjpeg.main([src, edited, out], device=dev) == 0
+        assert ck.launches == before + (3 if dev is cuda else 0)
+        with open(out, "rb") as f:
+            outs[str(dev)] = codec.decode(f.read())
+    # the box covers MCU rows 2-4 and MCU columns 3-8 (16x16 MCUs)
+    mcus = np.zeros((16, 16), bool)
+    mcus[2:5, 3:9] = True
+    for c, ci in enumerate(img.components):
+        m = np.kron(mcus, np.ones((ci.v_samp, ci.h_samp), bool))
+        for out in outs.values():
+            np.testing.assert_array_equal(out.coefs[c][~m], img.coefs[c][~m])
+        d = np.abs(outs[str(cuda)].coefs[c][m].astype(int)
+                   - outs["cpu"].coefs[c][m])
+        assert d.max() <= 1 and (d != 0).mean() < 0.005
 
 
 def test_compose_sharded_one_card_mesh(cuda):

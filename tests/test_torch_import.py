@@ -38,11 +38,19 @@ for flags in ([], ["-X"]):
     assert rc == 0, rc
     with open({out!r}, "rb") as f:
         assert f.read(2) == b"\xff\xd8"
+# the betterjpeg script, with the CLI's output as the edited (JPEG) image
+import contextlib, io, json
+from libmodjpeg_tpu_torch.scripts import betterjpeg
+buf = io.StringIO()
+with contextlib.redirect_stdout(buf):
+    rc = betterjpeg.main([{img!r}, {out!r}, {bj_out!r}], device="cpu")
+assert rc == 0 and buf.getvalue().startswith("composited "), buf.getvalue()
+with open({bj_out!r}, "rb") as f:
+    assert f.read(2) == b"\xff\xd8"
 # the huge-image, histogram, mesh and corpus modules, and the corpus CLI
 from libmodjpeg_tpu_torch.ops import histogram  # noqa: F401
 from libmodjpeg_tpu_torch.parallel import grid, mesh, session  # noqa: F401
 from libmodjpeg_tpu_torch import corpus
-import contextlib, io, json
 buf = io.StringIO()
 with contextlib.redirect_stdout(buf):
     rc = corpus.main(["--inputs", {img!r}, "--out", {corpus_out!r},
@@ -61,13 +69,15 @@ print("OK", changed)
 def test_port_composes_with_jax_blocked(tmp_path):
     """A fresh interpreter (the test process already imported jax).  The CLI
     run with a JPEG dropon and -X shows that the JAX package's JPEG-dropon
-    reader and bit-exact wrapper, which import jax, are not reached."""
+    reader and bit-exact wrapper, which import jax, are not reached; the
+    betterjpeg run, that its JAX script's pixel decode is not."""
     script = _SCRIPT.format(repo=REPO,
                             img=os.path.join(FIXTURE_IMAGES, "image.jpg"),
                             png=os.path.join(FIXTURE_IMAGES, "dropon.png"),
                             jpg=os.path.join(FIXTURE_IMAGES, "dropon.jpg"),
                             mask=os.path.join(FIXTURE_IMAGES, "mask.jpg"),
                             out=str(tmp_path / "out.jpg"),
+                            bj_out=str(tmp_path / "betterjpeg.jpg"),
                             corpus_out=str(tmp_path / "corpus"))
     env = dict(os.environ)
     env.pop("PYTHONPATH", None)
@@ -115,4 +125,5 @@ def test_no_module_of_the_port_imports_jax():
     assert {"cli.py", "corpus.py", "dropon.py", "effects.py", "pixels.py",
             "ops/effects.py", "ops/histogram.py", "parallel/grid.py",
             "parallel/mesh.py", "parallel/session.py",
-            "scripts/kernel_bench.py"} <= scanned, scanned
+            "scripts/betterjpeg.py", "scripts/kernel_bench.py"} <= scanned, \
+        scanned
