@@ -11,19 +11,32 @@ Phases, each of which raises on failure:
    the torch/CUDA versions and the card's name and power limit;
 2. build: compiles the hand-written kernel (compose and blend modes) from
    libmodjpeg_tpu_torch/csrc/ for sm_90a into build/torch_kernels/;
-3. compose mode against its plain-torch version, on the card and on the
-   CPU, at the main path's shapes, with the +-1 / <0.5% bar and exact
-   zero-mask blocks; times both at 12,288 and 131,072 blocks;
+3. compose mode (compose_rows_cuda, compact operands: R rows of hw blocks
+   read in place of a wider packed row, a random quant table per row, the
+   dropon and mask shared with a third of the positions zero-mask)
+   against its row-form plain version, on the card and on the CPU, with
+   the +-1 / <0.5% bar, exact zero-mask blocks and the in-place call, at
+   (R, hw) = (1, 1), (1, 7), (1, 4099), (32, 384), (32, 4096) with a
+   third of the positions opaque too (mask exactly 1); a strided grid
+   window with per-image dropons; 12-bit-range values; the test_pallas
+   all-zero case (q up to 65,534).  Times kernel and plain version in
+   turns at (32, 384), (32, 4096) and (1, 375000), and at (32, 4096) with
+   a third of the blocks opaque, rotating input sets past the L2, and
+   prints bytes, FLOPs (separable count), the bound on the published H100
+   peaks and the share of it;
 3b. blend mode against its plain-torch version, on the card and on the
    CPU, with the TPU blend kernel's bar (rtol 1e-5, atol 1e-3), zero-mask
    blocks exactly x1 and the opaque-mask case within 3e-2 of x0; times
-   both at 12,288 and 131,072 blocks;
+   both at 12,288 and 131,072 blocks the same way;
 4. main path: BatchComposer.watermark_stream on 32 1920x1088 4:2:0 q85
    JPEGs with a 256x64 RGBA logo, through the band splice, the forced full
    path and the surgical splice (restart_interval=32); checks the paths
    taken, splice bytes == full bytes, untouched coefficients identical to
    the input, the footprint within +-1 of a device="cpu" run, and that
-   every batch launched the kernel once per component;
+   every batch launched the kernel once per component; then replays one
+   batch's device step (packed_compose): the kernel at the batch's shapes
+   against its plain version, and the device milliseconds (CUDA events)
+   of the uplink restore, the compose launches and _pack_down;
 5. the kernel bench (libmodjpeg_tpu_torch.scripts.kernel_bench) at its
    default sizes, the path that runs the blend mode; checks that it
    launched both modes;
@@ -64,7 +77,8 @@ Phases, each of which raises on failure:
    (wire taken, downlink rows refetched, device time per step) and holds
    its Y launch (375,000 blocks) against its plain version on the card.
 
-Prints one JSON line describing the kernels, and as the last line
+Prints the card's name and power limit, then one JSON line describing the
+kernels (times, bounds, launches per path), and as the last line
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
 Exits non-zero, without that line, when any phase fails.
 """
@@ -85,9 +99,19 @@ BATCH = 32
 ITERS = 10            # timed passes over the corpus per stream path
 RESTART = 32          # MCUs per restart segment -> surgical path
 PLACE_OFFSET = (-32, -32)
-KERNEL_NS = (1, 7, 4099, 12288, 131072)
+# compose mode: (rows R, blocks per row hw) checked, and timed (the stream's
+# batch, a 32-row batch of 4,096-block footprints, the betterjpeg Y launch;
+# then the 32 x 4,096 batch with a third of its blocks opaque)
+KERNEL_ROWS = ((1, 1), (1, 7), (1, 4099), (32, 384), (32, 4096))
+TIMED_ROWS = ((32, 384, False), (32, 4096, False), (1, 375000, False),
+              (32, 4096, True))
+BLEND_NS = (1, 7, 4099, 12288, 131072)
 TIMED_NS = (12288, 131072)
 TIMED_REPS = 50
+COLD_BYTES = 150e6    # rotate input sets past 3x the 50 MB L2 when timing
+HBM_BPS = 3.35e12     # H100 SXM: published memory rate and f32 peak
+F32_FLOPS = 67e12
+BLOCK_FLOPS = 4 * 8 * 8 * 8 * 2   # separable transforms, per 8x8 block
 MAX_DIFF_SHARE = 0.005
 BLEND_RTOL, BLEND_ATOL = 1e-5, 1e-3   # tests/test_pallas.py:30
 CLI_W, CLI_H = 3840, 2160
@@ -144,85 +168,166 @@ def phase_build():
 
 # -- phase 3: kernel vs its plain version ---------------------------------------
 
-def _kernel_inputs(rng, n):
-    region = rng.randint(-900, 901, (n, 64)).astype(np.int16)
-    x0 = (rng.randn(n, 64) * 300).astype(np.float32)
-    m = (rng.rand(n, 64) * 0.9).astype(np.float32)
-    q = rng.randint(1, 256, (n, 64)).astype(np.int32)
-    zero = np.arange(n) % 3 == 0   # one third of the blocks: zero mask
+def _rows_inputs(rng, n, hw, qmax=256, rmax=900, opaque=False):
+    """Compose-mode operands as the stream batch gives them: an int16 [n, 1,
+    hw, 64] region read in place of a wider packed row (a second component
+    after it), one random quant table per row, the [hw, 64] dropon (whole
+    numbers, as a compiled dropon's Q100 coefficients are) and mask shared
+    by the rows with a third of the positions zero-mask; with ``opaque``,
+    another third opaque (mask exactly 1, a logo's core), which the kernel
+    recomputes in the plain version's order.  Returns the numpy arrays
+    (region, quant, dropon, mask) and the zero positions."""
+    packed = rng.randint(-rmax, rmax + 1, (n, hw + 2, 64)).astype(np.int16)
+    q = rng.randint(1, qmax, (n, 64)).astype(np.int32)
+    x0 = np.rint(rng.randn(hw, 64) * 300).astype(np.float32)
+    m = (rng.rand(hw, 64) * 0.9).astype(np.float32)
+    zero = np.arange(hw) % 3 == 0
     m[zero] = 0.0
-    return (region, x0, m, q), zero
+    if opaque:
+        m[np.arange(hw) % 3 == 1] = 1.0
+    return (packed, q, x0, m), zero
+
+
+def _rows_on(host, device, hw):
+    """The operands on ``device``: the region a strided view of the packed
+    rows."""
+    packed, q, x0, m = [torch.from_numpy(a).to(device) for a in host]
+    return (packed[:, :hw].view(-1, 1, hw, 64), q, x0, m)
+
+
+def _rows_cost(n, hw):
+    """(bytes, flops) a compose of n rows of hw blocks must move and do:
+    the int16 region in and out, the shared dropon and mask and the rows'
+    quant tables read once; the separable transforms."""
+    return n * hw * 256 + hw * 512 + n * 256, n * hw * BLOCK_FLOPS
+
+
+def _bound(nbytes, flops):
+    """(bound ms, what sets it) on the published H100 peaks."""
+    mem, ops = nbytes / HBM_BPS * 1e3, flops / F32_FLOPS * 1e3
+    return (mem, "bytes") if mem >= ops else (ops, "operations")
 
 
 def _time_ms(fn, args, reps):
     """Device milliseconds per call.  A device-side sleep queued ahead of
     the window lets the host enqueue every call before the first one runs,
     so host launch overhead does not leak into the device time."""
-    for _ in range(3):
-        fn(*args)
+    return _time_sets_ms(fn, [args], reps)
+
+
+def _time_sets_ms(fn, sets, reps):
+    """_time_ms cycling over several argument sets, so that no call finds
+    its inputs left in L2 by the one before when the sets together exceed
+    the L2."""
+    for a in sets[:3]:
+        fn(*a)
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
     torch.cuda._sleep(50_000_000)  # cycles: tens of ms at H100 clocks
     start.record()
-    for _ in range(reps):
-        fn(*args)
+    for k in range(reps):
+        fn(*sets[k % len(sets)])
     end.record()
     end.synchronize()
     return start.elapsed_time(end) / reps
 
 
+def _check_rows(got, ref, label):
+    """+-1 on under MAX_DIFF_SHARE of the coefficients; returns max |d| and
+    the share that differs."""
+    d = np.abs(got.astype(np.int64) - ref.astype(np.int64))
+    share = float((d != 0).mean())
+    if d.max() > 1 or share >= MAX_DIFF_SHARE:
+        raise AssertionError(f"{label}: max|d|={d.max()} differing={share}")
+    return int(d.max()), share
+
+
 def phase_kernel():
+    """The compose mode against its row-form plain version; returns the max
+    error, per timed shape (kernel ms, plain ms), and the count of checked
+    coefficients that differ from the plain version."""
     from libmodjpeg_tpu_torch.ops import compose_kernel as ck
 
     rng = np.random.RandomState(1234)
-    max_err = 0
-    for n in KERNEL_NS:
-        host, zero = _kernel_inputs(rng, n)
-        cpu = [torch.from_numpy(a) for a in host]
-        dev = [t.cuda() for t in cpu]
-        got = ck.compose_blocks_cuda(*dev)
-        plain_dev = ck.compose_blocks_ref(*dev)
+    max_err, differ, total = 0, 0, 0
+    for n, hw in KERNEL_ROWS:
+        host, zero = _rows_inputs(rng, n, hw, opaque=True)
+        cpu, dev = _rows_on(host, "cpu", hw), _rows_on(host, "cuda", hw)
+        got = ck.compose_rows_cuda(*dev)
+        plain_dev = ck.compose_rows_ref(*dev)
         torch.cuda.synchronize()
-        got = got.cpu().numpy().astype(np.int64)
+        got = got.cpu().numpy()
         for name, ref in (("card", plain_dev.cpu().numpy()),
-                          ("cpu", ck.compose_blocks_ref(*cpu).numpy())):
-            d = np.abs(got - ref.astype(np.int64))
-            share = float((d != 0).mean())
-            log(f"kernel N={n} vs plain on {name}: max|d|={int(d.max())} "
-                f"differing={share:.6f}")
-            if d.max() > 1 or share >= MAX_DIFF_SHARE:
-                raise AssertionError(f"kernel disagrees at N={n} ({name})")
-            max_err = max(max_err, int(d.max()))
-        if not np.array_equal(got[zero], host[0][zero]):
-            raise AssertionError(f"zero-mask blocks not exact at N={n}")
+                          ("cpu", ck.compose_rows_ref(*cpu).numpy())):
+            err, share = _check_rows(got, ref, f"kernel ({n}, {hw}) {name}")
+            log(f"kernel (R, hw)=({n}, {hw}) vs plain on {name}: "
+                f"max|d|={err} differing={share:.6f}")
+            max_err = max(max_err, err)
+            if name == "card":
+                differ += int(round(share * got.size))
+                total += got.size
+        if not np.array_equal(got[:, 0, zero], host[0][:, :hw][:, zero]):
+            raise AssertionError(f"zero-mask blocks not exact at ({n}, {hw})")
+        # in place of the region, as the grid paths call it
+        ck.compose_rows_cuda(dev[0], *dev[1:], out=dev[0])
+        if not np.array_equal(dev[0].cpu().numpy(), got):
+            raise AssertionError(f"in-place compose differs at ({n}, {hw})")
+
+    # a footprint window of a [N, H, W, 8, 8] grid with per-image dropons,
+    # and 12-bit-range values (the kernel's int32 requantization path)
+    grids = rng.randint(-900, 901, (3, 9, 40, 64)).astype(np.int16)
+    ops = [torch.from_numpy(grids)[:, 2:6, 5:38],
+           torch.from_numpy(rng.randint(1, 256, (3, 64)).astype(np.int32)),
+           torch.from_numpy((rng.randn(3, 132, 64) * 300).astype(np.float32)),
+           torch.from_numpy((rng.rand(3, 132, 64) * 0.9).astype(np.float32))]
+    win = [torch.from_numpy(grids).cuda()[:, 2:6, 5:38]] + [
+        t.cuda() for t in ops[1:]]
+    big, _ = _rows_inputs(rng, 4, 999, qmax=65535, rmax=32767, opaque=True)
+    for label, cpu, dev in (
+            ("window", ops, win),
+            ("12-bit", _rows_on(big, "cpu", 999), _rows_on(big, "cuda", 999))):
+        got = ck.compose_rows_cuda(*dev).cpu().numpy()
+        err, share = _check_rows(got, ck.compose_rows_ref(*cpu).numpy(),
+                                 label)
+        log(f"kernel {label} {tuple(cpu[0].shape)} vs plain on cpu: "
+            f"max|d|={err} differing={share:.6f}")
 
     # the test_pallas zero-mask case: region +-2047, q up to 65534
     n = 2053
-    region = rng.randint(-2047, 2048, (n, 64)).astype(np.int16)
+    region = rng.randint(-2047, 2048, (1, 1, n, 64)).astype(np.int16)
     x0 = (rng.randn(n, 64) * 500).astype(np.float32)
-    q = rng.randint(1, 65535, (n, 64)).astype(np.int32)
-    out = ck.compose_blocks_cuda(
-        torch.from_numpy(region).cuda(), torch.from_numpy(x0).cuda(),
-        torch.zeros((n, 64), dtype=torch.float32, device="cuda"),
-        torch.from_numpy(q).cuda()).cpu().numpy()
-    if not np.array_equal(out, region):
+    q = rng.randint(1, 65535, (1, 64)).astype(np.int32)
+    out = ck.compose_rows_cuda(
+        torch.from_numpy(region).cuda(), torch.from_numpy(q).cuda(),
+        torch.from_numpy(x0).cuda(),
+        torch.zeros((n, 64), dtype=torch.float32, device="cuda")).cpu()
+    if not np.array_equal(out.numpy(), region):
         raise AssertionError("all-zero mask case is not an exact identity")
     log("kernel: all-zero-mask case (N=2053, q<=65534) exact")
+    log(f"kernel: {differ} of {total} checked coefficients differ from the "
+        f"plain version on the card (max 1)")
 
     times = {}
-    for n in TIMED_NS:
-        host, _ = _kernel_inputs(rng, n)
-        dev = [torch.from_numpy(a).cuda() for a in host]
+    for n, hw, opaque in TIMED_ROWS:
+        nbytes, flops = _rows_cost(n, hw)
+        sets = [_rows_on(_rows_inputs(rng, n, hw, opaque=opaque)[0], "cuda",
+                         hw)
+                for _ in range(max(1, int(np.ceil(COLD_BYTES / nbytes))))]
+        plain_reps = max(3, min(TIMED_REPS, int(2e7 // (n * hw))))
         # in turns, plain / kernel / kernel / plain, on one card
-        p1 = _time_ms(ck.compose_blocks_ref, dev, TIMED_REPS)
-        k1 = _time_ms(ck.compose_blocks_cuda, dev, TIMED_REPS)
-        k2 = _time_ms(ck.compose_blocks_cuda, dev, TIMED_REPS)
-        p2 = _time_ms(ck.compose_blocks_ref, dev, TIMED_REPS)
-        times[n] = ((k1 + k2) / 2, (p1 + p2) / 2)
-        gbs = n * 1024 / ((k1 + k2) / 2 * 1e-3) / 1e9
-        log(f"time N={n}: kernel {k1:.4f}/{k2:.4f} ms, plain {p1:.4f}/"
-            f"{p2:.4f} ms ({gbs:.1f} GB/s of kernel traffic)")
-    return max_err, times
+        p1 = _time_sets_ms(ck.compose_rows_ref, sets, plain_reps)
+        k1 = _time_sets_ms(ck.compose_rows_cuda, sets, TIMED_REPS)
+        k2 = _time_sets_ms(ck.compose_rows_cuda, sets, TIMED_REPS)
+        p2 = _time_sets_ms(ck.compose_rows_ref, sets, plain_reps)
+        k, p = (k1 + k2) / 2, (p1 + p2) / 2
+        bound, by = _bound(nbytes, flops)
+        times[(n, hw, opaque)] = (k, p, bound, by)
+        log(f"time (R, hw)=({n}, {hw}){' a third opaque' if opaque else ''}, "
+            f"{len(sets)} input sets in turn: "
+            f"kernel {k1:.4f}/{k2:.4f} ms, plain {p1:.4f}/{p2:.4f} ms; "
+            f"{nbytes} B, {flops} FLOP, bound {bound:.4f} ms ({by}), "
+            f"{bound / k:.1%} of the bound")
+    return max_err, times, (differ, total)
 
 
 # -- phase 3b: blend mode vs its plain version ---------------------------------
@@ -260,7 +365,7 @@ def phase_blend():
 
     rng = np.random.RandomState(4321)
     max_err = 0.0
-    for n in KERNEL_NS:
+    for n in BLEND_NS:
         host, zero = _blend_inputs(rng, n)
         cpu = [torch.from_numpy(a) for a in host]
         dev = [t.cuda() for t in cpu]
@@ -294,16 +399,20 @@ def phase_blend():
 
     times = {}
     for n in TIMED_NS:
-        host, _ = _blend_inputs(rng, n)
-        dev = [torch.from_numpy(a).cuda() for a in host]
-        p1 = _time_ms(_blend_plain, dev, TIMED_REPS)
-        k1 = _time_ms(ck.blend_blocks_cuda, dev, TIMED_REPS)
-        k2 = _time_ms(ck.blend_blocks_cuda, dev, TIMED_REPS)
-        p2 = _time_ms(_blend_plain, dev, TIMED_REPS)
-        times[n] = ((k1 + k2) / 2, (p1 + p2) / 2)
-        gbs = n * 1024 / ((k1 + k2) / 2 * 1e-3) / 1e9
-        log(f"blend time N={n}: kernel {k1:.4f}/{k2:.4f} ms, plain "
-            f"{p1:.4f}/{p2:.4f} ms ({gbs:.1f} GB/s of kernel traffic)")
+        nbytes, flops = n * 4 * 4 * 64, n * BLOCK_FLOPS
+        sets = [[torch.from_numpy(a).cuda() for a in _blend_inputs(rng, n)[0]]
+                for _ in range(max(1, int(np.ceil(COLD_BYTES / nbytes))))]
+        p1 = _time_sets_ms(_blend_plain, sets, TIMED_REPS)
+        k1 = _time_sets_ms(ck.blend_blocks_cuda, sets, TIMED_REPS)
+        k2 = _time_sets_ms(ck.blend_blocks_cuda, sets, TIMED_REPS)
+        p2 = _time_sets_ms(_blend_plain, sets, TIMED_REPS)
+        k, p = (k1 + k2) / 2, (p1 + p2) / 2
+        bound, by = _bound(nbytes, flops)
+        times[n] = (k, p, bound, by)
+        log(f"blend time N={n}, {len(sets)} input sets in turn: kernel "
+            f"{k1:.4f}/{k2:.4f} ms, plain {p1:.4f}/{p2:.4f} ms; {nbytes} B, "
+            f"{flops} FLOP, bound {bound:.4f} ms ({by}), "
+            f"{bound / k:.1%} of the bound")
     return max_err, times
 
 
@@ -337,7 +446,7 @@ def make_logo(rng, w, h):
 def _check_footprint(origins, inputs, outputs, cpu_outputs, label):
     """Untouched coefficients identical to the input; the footprint within
     +-1 of the CPU run on under 0.5% of its coefficients."""
-    from libmodjpeg_tpu import codec
+    from libmodjpeg_tpu_torch import codec
 
     diffs = total = 0
     for src, out, ref in zip(inputs, outputs, cpu_outputs):
@@ -362,7 +471,7 @@ def _check_footprint(origins, inputs, outputs, cpu_outputs, label):
 
 def phase_main_path(pool):
     import libmodjpeg_tpu_torch as mt
-    from libmodjpeg_tpu import codec
+    from libmodjpeg_tpu_torch import codec
     from libmodjpeg_tpu_torch.encode_pixels import from_pixels
     from libmodjpeg_tpu_torch.ops import compose_kernel as ck
     from libmodjpeg_tpu_torch.parallel import BatchComposer
@@ -439,7 +548,71 @@ def phase_main_path(pool):
                                  f"{cpu_bc.last_stream_path}")
         _check_footprint(bc._region_origins(), datas, results[name], cpu_out,
                          name)
-    return total_launches, free
+    step = _stream_step(composers["splice"], free)
+    return total_launches, free, step
+
+
+def _stream_step(bc, datas):
+    """One stream batch's device step (packed_compose) replayed piece by
+    piece on the card: the kernel at the batch's own shapes held against
+    its plain version, and the device milliseconds of the uplink restore,
+    the compose (one launch per component) and _pack_down, timed with CUDA
+    events.  Returns the compose's (kernel ms, plain ms, bytes, flops)."""
+    from libmodjpeg_tpu_torch import codec
+    from libmodjpeg_tpu_torch.ops import compose_kernel as ck
+    from libmodjpeg_tpu_torch.parallel import batch as tbatch
+
+    imgs = [codec.decode(d) for d in datas[:BATCH]]
+    n, meta, dd = len(imgs), bc._meta, bc._dev
+    flat = np.concatenate(
+        [np.stack([im.coefs[c][r0:r0 + h, c0:c0 + w] for im in imgs])
+         .reshape(n, -1)
+         for c, (r0, c0, h, w) in enumerate(bc._region_origins())], axis=1)
+    qstack = np.concatenate(
+        [np.stack([np.asarray(im.quant_table_for(c), np.int32).reshape(64)
+                   for im in imgs]) for c in range(len(meta))], axis=1)
+    packed = tbatch._wirepack(flat)
+    up = [torch.from_numpy(a).cuda() for a in (packed or (flat,))]
+    q = torch.from_numpy(qstack).cuda()
+    cap = bc._down_cap
+    body_in = tbatch._restore_uplink(*up) if packed else up[0]
+
+    def plain_body():
+        out, off = [], 0
+        for c, hw in enumerate(meta):
+            out.append(ck.compose_rows_ref(
+                body_in[:, off:off + hw * 64].view(n, 1, hw, 64),
+                q[:, c * 64:(c + 1) * 64], dd.drops[c],
+                dd.masks[c]).view(n, -1))
+            off += hw * 64
+        return torch.cat(out, dim=1)
+
+    body_out = tbatch._compose_body(meta, body_in, q, dd.drops, dd.masks)
+    err, share = _check_rows(body_out.cpu().numpy(),
+                             plain_body().cpu().numpy(), "stream batch")
+    zero = torch.cat([(m == 0).all(dim=1) for m in dd.masks])
+    got = body_out.view(n, -1, 64)[:, zero]
+    if not torch.equal(got, body_in.view(n, -1, 64)[:, zero]):
+        raise AssertionError("stream batch: zero-mask blocks moved")
+    log(f"stream batch (R, hw per component)=({n}, {meta}): kernel vs plain "
+        f"on the card max|d|={err} differing={share:.6f}; "
+        f"{int(zero.sum())} zero-mask block positions exact")
+    steps = {
+        "_restore_uplink": (lambda: tbatch._restore_uplink(*up)
+                            if packed else None),
+        f"compose ({len(meta)} launches)": lambda: tbatch._compose_body(
+            meta, body_in, q, dd.drops, dd.masks),
+        "_pack_down": lambda: tbatch._pack_down(body_out, cap),
+        "packed_compose (all)": lambda: tbatch.packed_compose(
+            meta, tuple(up) if packed else up[0], q, dd.drops, dd.masks, cap),
+        "plain compose": plain_body,
+    }
+    ms = {k: _time_ms(f, (), TIMED_REPS) for k, f in steps.items()}
+    log("stream batch device step: " + ", ".join(
+        f"{k} {v:.4f} ms" for k, v in ms.items()))
+    costs = [_rows_cost(n, hw) for hw in meta]
+    return (ms[f"compose ({len(meta)} launches)"], ms["plain compose"],
+            sum(b for b, _ in costs), sum(f for _, f in costs))
 
 
 # -- phase 5: the kernel bench -------------------------------------------------
@@ -471,7 +644,7 @@ def _cli_footprints(src):
     """Per component, True on the blocks the two dropons of _cli_args
     cover."""
     import libmodjpeg_tpu_torch as mt
-    from libmodjpeg_tpu import codec
+    from libmodjpeg_tpu_torch import codec
     from libmodjpeg_tpu_torch.parallel import BatchComposer
 
     img = codec.decode(open(src, "rb").read())
@@ -499,7 +672,7 @@ def _share_within_one(a, b, label):
 
 
 def phase_cli():
-    from libmodjpeg_tpu import codec
+    from libmodjpeg_tpu_torch import codec
     from libmodjpeg_tpu_torch import cli
     from libmodjpeg_tpu_torch.encode_pixels import from_pixels
     from libmodjpeg_tpu_torch.ops import compose_kernel as ck
@@ -576,8 +749,8 @@ def synth_big(mp_target):
     and two AC coefficients per block, and a block-row count that does not
     divide by 8 (tests/test_bigimage.py synth_big, rebuilt here because
     tests/ imports JAX)."""
-    from libmodjpeg_tpu import constants as C
-    from libmodjpeg_tpu.model import CoefImage, ComponentInfo, Sampling
+    from libmodjpeg_tpu_torch import constants as C
+    from libmodjpeg_tpu_torch.model import CoefImage, ComponentInfo, Sampling
 
     mcus_w = int(np.sqrt(mp_target * 1e6 * (3 / 2)) // 16)
     mcus_h = int(mp_target * 1e6 // (mcus_w * 16 * 16))
@@ -645,7 +818,7 @@ def _footprint_masks(img, logo, align, ox, oy):
 
 def phase_grid_session():
     import libmodjpeg_tpu_torch as mt
-    from libmodjpeg_tpu import codec
+    from libmodjpeg_tpu_torch import codec
     from libmodjpeg_tpu_torch import composer
     from libmodjpeg_tpu_torch.ops import compose_kernel as ck
 
@@ -739,7 +912,7 @@ def phase_grid_session():
 def _compare_outputs(card, cpu, inside, label):
     """Card vs CPU output files: coefficients within the bar, and bytes
     identical wherever the coefficients are."""
-    from libmodjpeg_tpu import codec
+    from libmodjpeg_tpu_torch import codec
 
     differing = total = same = 0
     for name in sorted(card):
@@ -761,7 +934,7 @@ def _compare_outputs(card, cpu, inside, label):
 
 def phase_corpus(datas):
     import libmodjpeg_tpu_torch as mt
-    from libmodjpeg_tpu import codec
+    from libmodjpeg_tpu_torch import codec
     from libmodjpeg_tpu_torch.corpus import CorpusConfig, run_corpus
     from libmodjpeg_tpu_torch.ops import compose_kernel as ck
     from libmodjpeg_tpu_torch.parallel import compose_batch
@@ -981,37 +1154,40 @@ def _bj_compose_breakdown(img, dropon):
     log("betterjpeg device step: " + ", ".join(
         f"{k} {v:.3f} ms" for k, v in step_ms.items()))
 
-    # the Y launch at its real operands against its plain version
+    # the Y launch at its real operands (one row of (1, hw) blocks, the
+    # frame's quant table, the whole-frame dropon and mask) against its
+    # plain version
     n = bc._meta[0]
     region = torch.from_numpy(np.array(regions[0][0], np.int16).reshape(
-        n, 64)).cuda()
+        1, 1, n, 64)).cuda()
     q = torch.from_numpy(np.asarray(quants[0][0], np.int32).reshape(
-        1, 64)).cuda().expand(n, 64).contiguous()
-    ops = (region, dd.drops[0], dd.masks[0], q)
-    got = ck.compose_blocks_cuda(*ops)
-    ref = ck.compose_blocks_ref(*ops)
+        1, 64)).cuda()
+    ops = (region, q, dd.drops[0], dd.masks[0])
+    got = ck.compose_rows_cuda(*ops)
+    ref = ck.compose_rows_ref(*ops)
     zero = (dd.masks[0] == 0).all(dim=1)
-    if not torch.equal(got[zero], region[zero]):
+    if not torch.equal(got[0, 0][zero], region[0, 0][zero]):
         raise AssertionError("betterjpeg Y launch: zero-mask blocks moved")
-    d = (got.to(torch.int32) - ref.to(torch.int32)).abs()
-    err, share = int(d.max()), float((d != 0).float().mean())
-    if err > 1 or share >= MAX_DIFF_SHARE:
-        raise AssertionError(f"betterjpeg Y launch: max|d|={err}, "
-                             f"{share:.6f} differ")
-    p1 = _time_ms(ck.compose_blocks_ref, ops, 10)
-    k1 = _time_ms(ck.compose_blocks_cuda, ops, 10)
-    k2 = _time_ms(ck.compose_blocks_cuda, ops, 10)
-    p2 = _time_ms(ck.compose_blocks_ref, ops, 10)
-    log(f"betterjpeg Y launch N={n}: {int(zero.sum())} zero-mask blocks "
-        f"exact; vs plain on the card max|d|={err} differing={share:.6f}; "
-        f"kernel {k1:.4f}/{k2:.4f} ms, plain {p1:.4f}/{p2:.4f} ms")
+    err, share = _check_rows(got.cpu().numpy(), ref.cpu().numpy(),
+                             "betterjpeg Y launch")
+    p1 = _time_ms(ck.compose_rows_ref, ops, 10)
+    k1 = _time_ms(ck.compose_rows_cuda, ops, 10)
+    k2 = _time_ms(ck.compose_rows_cuda, ops, 10)
+    p2 = _time_ms(ck.compose_rows_ref, ops, 10)
+    nbytes, flops = _rows_cost(1, n)
+    bound, by = _bound(nbytes, flops)
+    log(f"betterjpeg Y launch (R, hw)=(1, {n}): {int(zero.sum())} zero-mask "
+        f"blocks exact; vs plain on the card max|d|={err} "
+        f"differing={share:.6f}; kernel {k1:.4f}/{k2:.4f} ms, plain "
+        f"{p1:.4f}/{p2:.4f} ms; bound {bound:.4f} ms ({by}), "
+        f"{bound / ((k1 + k2) / 2):.1%} of the bound")
 
 
 def phase_betterjpeg():
     import contextlib
     import io
 
-    from libmodjpeg_tpu import codec
+    from libmodjpeg_tpu_torch import codec
     from libmodjpeg_tpu_torch.encode_pixels import from_pixels
     from libmodjpeg_tpu_torch.ops import compose_kernel as ck
     from libmodjpeg_tpu_torch.pixels import to_pixels
@@ -1123,14 +1299,14 @@ def phase_betterjpeg():
 def main():
     from concurrent.futures import ThreadPoolExecutor
 
-    phase_environment()
+    card = phase_environment()
     from libmodjpeg_tpu_torch.ops import compose_kernel as ck
 
     phase_build()
-    max_err, times = phase_kernel()
+    max_err, times, differ = phase_kernel()
     blend_err, blend_times = phase_blend()
     with ThreadPoolExecutor(max_workers=max(2, os.cpu_count() or 2)) as pool:
-        launches, corpus = phase_main_path(pool)
+        launches, corpus, step = phase_main_path(pool)
     bench = phase_kernel_bench()
     torch.cuda.synchronize()
     ck.launches = 0
@@ -1138,10 +1314,14 @@ def main():
     grid_launches = phase_grid_session()
     corpus_launches, batch_launches = phase_corpus(corpus)
     bj_launches = phase_betterjpeg()
-    k_ms, p_ms = times[TIMED_NS[0]]
-    bk_ms, bp_ms = blend_times[TIMED_NS[0]]
+    # compose: one stream batch's launches (phase 4); blend: the kernel
+    # bench's largest default size, inputs cold (phase 3b)
+    k_ms, p_ms, nbytes, flops = step
+    bound, by = _bound(nbytes, flops)
+    bk_ms, bp_ms, bbound, bby = blend_times[TIMED_NS[-1]]
+    log(card)
     print(json.dumps({"kernels": [{
-        "name": "compose_blocks",
+        "name": "compose_rows",
         "route": "cuda",
         "source": "libmodjpeg_tpu_torch/csrc/compose.cu",
         "replaces": "libmodjpeg_tpu/ops/pallas_compose.py:105",
@@ -1149,6 +1329,15 @@ def main():
         "max_abs_err": max_err,
         "ms": k_ms,
         "plain_ms": p_ms,
+        "bound_ms": bound,
+        "bound_by": by,
+        "library_ms": None,
+        "shape": "one stream batch: its compose launches, (R, hw) = "
+                 f"({BATCH}, each component's footprint blocks)",
+        "differing_coefficients": list(differ),
+        "by_shape": {f"{n}x{hw}{' opaque third' if o else ''}": {
+            "ms": t[0], "plain_ms": t[1], "bound_ms": t[2], "bound_by": t[3]}
+            for (n, hw, o), t in times.items()},
         "launches_by_path": {"watermark_stream": launches,
                              "kernel_bench": bench["compose"],
                              "cli": cli_launches,
@@ -1165,6 +1354,10 @@ def main():
         "max_abs_err": blend_err,
         "ms": bk_ms,
         "plain_ms": bp_ms,
+        "bound_ms": bbound,
+        "bound_by": bby,
+        "library_ms": None,
+        "shape": f"{TIMED_NS[-1]} blocks",
         "launches_by_path": {"kernel_bench": bench["blend"]},
     }]}), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -4,8 +4,9 @@ NVIDIA Hopper.
 
 The host layer (the C++ entropy codec, the CoefImage/Dropon models, PNG and
 raw dropon ingestion, the surgical splice planner, the bit-exact compose
-arithmetic) is imported from libmodjpeg_tpu as it is; those modules import
-no JAX.  What ran on the TPU (dropon compilation, JPEG-dropon decoding to
+arithmetic) is the port's own copy of libmodjpeg_tpu's: nothing here
+imports libmodjpeg_tpu, and the codec is built by g++ into
+``build/torch_codec/`` at first use.  What ran on the TPU (dropon compilation, JPEG-dropon decoding to
 pixels, the compose step, the effects, the packed device step of the
 streaming pipeline, the huge-image GridSession and its Huffman-optimize
 histograms) runs here on a torch ``device``: ``"cuda"`` by default,
@@ -16,7 +17,7 @@ libmodjpeg_tpu_torch.cli`` is the modjpeg CLI, and ``python -m
 libmodjpeg_tpu_torch.corpus`` the corpus runner.
 """
 
-from libmodjpeg_tpu.constants import (  # noqa: F401
+from .constants import (  # noqa: F401
     ALIGN_BOTTOM,
     ALIGN_CENTER,
     ALIGN_LEFT,
@@ -38,7 +39,7 @@ from libmodjpeg_tpu.constants import (  # noqa: F401
     OPTION_PROGRESSIVE,
     VERSION_STR,
 )
-from libmodjpeg_tpu.errors import (  # noqa: F401
+from .errors import (  # noqa: F401
     DecodeError,
     DroponDimensionsError,
     EncodeError,
@@ -49,7 +50,7 @@ from libmodjpeg_tpu.errors import (  # noqa: F401
     UnsupportedColorspaceError,
     UnsupportedFiletypeError,
 )
-from libmodjpeg_tpu.model import CoefImage, CompiledDropon, Dropon  # noqa: F401
+from .model import CoefImage, CompiledDropon, Dropon  # noqa: F401
 
 __version__ = VERSION_STR
 
@@ -57,7 +58,7 @@ __version__ = VERSION_STR
 def read_jpeg(source, max_pixel: int = 0,
               allow_cmyk: bool = False) -> "CoefImage":
     """Read a JPEG (path or bytes) into coefficient space."""
-    from libmodjpeg_tpu.jpegio import read_jpeg as _impl
+    from .jpegio import read_jpeg as _impl
 
     return _impl(source, max_pixel=max_pixel, allow_cmyk=allow_cmyk)
 
@@ -65,7 +66,7 @@ def read_jpeg(source, max_pixel: int = 0,
 def write_jpeg(img: "CoefImage", dest=None, options: int = 0,
                ref_markers: bool = False):
     """Write a CoefImage to a path (dest=str) or return bytes (dest=None)."""
-    from libmodjpeg_tpu.jpegio import write_jpeg as _impl
+    from .jpegio import write_jpeg as _impl
 
     return _impl(img, dest, options=options, ref_markers=ref_markers)
 
@@ -85,7 +86,7 @@ def read_dropon(source, mask=None, blend: int = BLEND_FULL,
 def read_dropon_from_raw(rawdata, colorspace: int, width: int, height: int,
                          blend: int = BLEND_FULL) -> "Dropon":
     """Mirrors mj_read_dropon_from_raw (dropon.c:203)."""
-    from libmodjpeg_tpu.dropon import read_dropon_from_raw as _impl
+    from .dropon import read_dropon_from_raw as _impl
 
     return _impl(rawdata, colorspace, width, height, blend)
 
@@ -149,9 +150,9 @@ def watermark(data: bytes, dropon: "Dropon", align: int = 0,
     """
     import torch
 
-    from libmodjpeg_tpu import codec
-    from libmodjpeg_tpu.corpus import _geometry_key
-    from libmodjpeg_tpu.surgical import parse_structure
+    from . import codec
+    from .corpus import _geometry_key
+    from .surgical import parse_structure
 
     from .parallel.batch import BatchComposer
 

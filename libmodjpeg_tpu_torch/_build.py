@@ -30,13 +30,14 @@ NVCC_FLAGS = ARCH_FLAGS + ("-std=c++17", "-O3", "-shared", "-Xcompiler",
 # argtypes of each C entry point: pointers and the stream as c_void_p (a
 # Python int passed without them would be cut to 32 bits), counts as
 # c_longlong; every entry point returns a CUDA error code as int
+_P, _N = ctypes.c_void_p, ctypes.c_longlong
 SIGNATURES = {
-    # region, x0, mask, quant, u, out, n, stream
-    "mjt_compose_blocks": [ctypes.c_void_p] * 6 + [ctypes.c_longlong,
-                                                   ctypes.c_void_p],
-    # image, x0, mask, u, out, n, stream
-    "mjt_blend_blocks": [ctypes.c_void_p] * 5 + [ctypes.c_longlong,
-                                                 ctypes.c_void_p],
+    # region, region_si, region_sy, quant, quant_si, dropon, mask, dm_si,
+    # out, out_si, out_sy, n, h, w, u, ut, stream
+    "mjt_compose_rows": [_P, _N, _N, _P, _N, _P, _P, _N, _P, _N, _N, _N,
+                         _N, _N, _P, _P, _P],
+    # image, x0, mask, out, n, stream
+    "mjt_blend_blocks": [_P, _P, _P, _P, _N, _P],
 }
 
 _lock = threading.Lock()

@@ -19,9 +19,9 @@ from __future__ import annotations
 
 import sys
 
-from libmodjpeg_tpu import constants as C
-from libmodjpeg_tpu.errors import ModJpegError
-from libmodjpeg_tpu.jpegio import read_jpeg, write_jpeg
+from . import constants as C
+from .errors import ModJpegError
+from .jpegio import read_jpeg, write_jpeg
 
 from . import compose
 from . import effects as fx

@@ -4,7 +4,7 @@ libmodjpeg_tpu.composer).
 Placement mirrors compose.c:57-172 with its edge-case quirks; the dropon
 compilation (dropon.c:325-428) runs color convert -> box subsample ->
 batched FDCT -> round on ``device`` and returns the host CompiledDropon
-model shared with the JAX package.
+model (model.py, the port's copy of the JAX package's).
 """
 
 from __future__ import annotations
@@ -14,9 +14,9 @@ import dataclasses
 import numpy as np
 import torch
 
-from libmodjpeg_tpu import constants as C
-from libmodjpeg_tpu.errors import NullDataError, UnsupportedColorspaceError
-from libmodjpeg_tpu.model import CoefImage, CompiledDropon, Dropon
+from . import constants as C
+from .errors import NullDataError, UnsupportedColorspaceError
+from .model import CoefImage, CompiledDropon, Dropon
 
 from .ops import dct as dctops
 from .ops.compose import mask_pix_np
@@ -229,7 +229,7 @@ def compose_bitexact(img: CoefImage, d: Dropon, align: int = 0,
     port of libmodjpeg_tpu.bitexact.compose_bitexact around this module's
     plan_placement; that module's own wrapper imports the JAX composer).
     Returns a new image."""
-    from libmodjpeg_tpu.bitexact import blend_bitexact, compile_dropon_bitexact
+    from .bitexact import blend_bitexact, compile_dropon_bitexact
 
     if img is None or d is None:
         raise NullDataError("image and dropon required")

@@ -10,8 +10,8 @@
 * throughput metrics (MP/s, per-stage wall clock) + an optional
   torch.profiler Chrome trace (``trace_dir``)
 
-The journal, metrics, input expansion and geometry key are the JAX
-package's own (they import no JAX).  The JAX runner's MJT_PLATFORM switch
+The journal, metrics, input expansion and geometry key are copies of the
+JAX package's.  The JAX runner's MJT_PLATFORM switch
 and persistent XLA compile cache have no counterpart here: the device is
 the ``device=`` keyword, and the compose kernel's build is cached in
 ``build/torch_kernels/`` by its source hash.
@@ -21,19 +21,112 @@ from __future__ import annotations
 
 import argparse
 import contextlib
+import dataclasses
+import glob
 import json
 import os
 import sys
 import time
 from concurrent.futures import ThreadPoolExecutor
+from typing import Optional
 
 import torch
 
-from libmodjpeg_tpu import constants as C
-from libmodjpeg_tpu.corpus import (CorpusConfig, ManifestJournal,  # noqa: F401
-                                   Metrics, _expand_inputs, _geometry_key)
-from libmodjpeg_tpu.errors import ModJpegError
-from libmodjpeg_tpu.jpegio import read_jpeg, write_jpeg
+from . import constants as C
+from .errors import ModJpegError
+from .jpegio import read_jpeg, write_jpeg
+
+
+@dataclasses.dataclass
+class CorpusConfig:
+    inputs: list
+    output_dir: str
+    dropon_path: Optional[str] = None
+    mask_path: Optional[str] = None
+    align: int = C.ALIGN_TOP | C.ALIGN_LEFT
+    offset_x: int = 0
+    offset_y: int = 0
+    effects: list = dataclasses.field(default_factory=list)  # [(name, args)]
+    encode_options: int = 0
+    restart_interval: Optional[int] = None
+    batch_size: int = 16
+    io_workers: int = 4
+    num_hosts: int = 1
+    host_id: int = 0
+    resume: bool = False
+    max_pixel: int = 0
+    trace_dir: Optional[str] = None
+    max_failures: int = -1  # -1 = unlimited
+
+
+class ManifestJournal:
+    """Append-only JSONL journal; the durable artifact for resume."""
+
+    def __init__(self, path: str, resume: bool):
+        self.path = path
+        self.done = {}
+        if resume and os.path.exists(path):
+            with open(path) as f:
+                for line in f:
+                    try:
+                        rec = json.loads(line)
+                    except json.JSONDecodeError:
+                        continue  # torn tail write from a crash
+                    if rec.get("status") == "done":
+                        self.done[rec["input"]] = rec
+        mode = "a" if resume else "w"
+        os.makedirs(os.path.dirname(path) or ".", exist_ok=True)
+        self._f = open(path, mode)
+
+    def record(self, rec: dict) -> None:
+        self._f.write(json.dumps(rec) + "\n")
+        self._f.flush()
+        os.fsync(self._f.fileno())
+
+    def close(self):
+        self._f.close()
+
+
+class Metrics:
+    def __init__(self):
+        self.stages = {}
+        self.megapixels = 0.0
+        self.files_done = 0
+        self.files_failed = 0
+        self.t0 = time.perf_counter()
+
+    def add(self, stage: str, dt: float):
+        self.stages[stage] = self.stages.get(stage, 0.0) + dt
+
+    def summary(self) -> dict:
+        wall = time.perf_counter() - self.t0
+        return {
+            "files_done": self.files_done,
+            "files_failed": self.files_failed,
+            "megapixels": round(self.megapixels, 2),
+            "wall_s": round(wall, 3),
+            "mp_per_s": round(self.megapixels / wall, 2) if wall > 0 else 0.0,
+            "stage_s": {k: round(v, 3) for k, v in self.stages.items()},
+        }
+
+
+def _expand_inputs(patterns) -> list:
+    files = []
+    for p in patterns:
+        if os.path.isdir(p):
+            files.extend(sorted(glob.glob(os.path.join(p, "*.jpg"))))
+            files.extend(sorted(glob.glob(os.path.join(p, "*.jpeg"))))
+        else:
+            matched = sorted(glob.glob(p))
+            files.extend(matched if matched else [p])
+    return files
+
+
+def _geometry_key(img) -> tuple:
+    return (img.width, img.height,
+            tuple((c.h_samp, c.v_samp) for c in img.components),
+            tuple(sorted((t, tuple(tbl.reshape(-1)))
+                         for t, tbl in img.quant_tables.items())))
 
 
 @contextlib.contextmanager
@@ -197,8 +290,8 @@ def _run_corpus_stream(cfg: CorpusConfig, todo, skipped, dropon, journal,
     batch degrades to per-file processing so one bad file cannot take down
     its batch.
     """
-    from libmodjpeg_tpu import codec
-    from libmodjpeg_tpu.surgical import parse_structure
+    from . import codec
+    from .surgical import parse_structure
 
     from .parallel.batch import BatchComposer
 

@@ -6,11 +6,15 @@ per-coefficient pixel-domain mask m (mask_pix_np) the blend is
 
   Y = x1 + U^T diag(m) U (x0 - x1),   U = C (x) C
 
-two GEMMs per block.  ``compose_blocks`` is the full quantized compose step
-(dequantize, blend, truncating correction, truncating requantize); it runs
-the hand-written CUDA kernel (compose_kernel.py) on a CUDA tensor and the
-plain-torch ``compose_blocks_ref`` on a CPU tensor.  ``blend_blocks_auto``
-routes the bare f32 blend the same way (kernel bench and parity only).
+two GEMMs per block.  ``compose_blocks_ref`` is the full quantized compose
+step (dequantize, blend, truncating correction, truncating requantize) on
+the TPU kernel's [N, 64] operands.  ``compose_rows`` is the step every
+compose path runs, on the packed batch's compact operands (a strided block
+region, one quant table per image, the dropon and mask shared or per
+image): it launches the hand-written CUDA kernel (compose_kernel.py) on a
+CUDA tensor and the plain-torch ``compose_rows_ref`` on a CPU tensor.
+``blend_blocks_auto`` routes the bare f32 blend the same way (kernel bench
+and parity only).
 """
 
 from __future__ import annotations
@@ -64,6 +68,13 @@ def dct_kron(device) -> torch.Tensor:
     and shared by every caller (nobody writes to it): a copy to the card on
     every call would synchronise the stream."""
     return _dct_kron_on(torch.device(device))
+
+
+@functools.lru_cache(maxsize=None)
+def dct_kron_t(device) -> torch.Tensor:
+    """The contiguous transpose of dct_kron(device), made once per device
+    (the compose kernel's dense rows for opaque blocks)."""
+    return dct_kron(device).t().contiguous()
 
 
 def blend_blocks_m(x_image: torch.Tensor, x_dropon: torch.Tensor,
@@ -133,29 +144,46 @@ def compose_blocks_ref(region: torch.Tensor, x_dropon: torch.Tensor,
     return out.clamp(-32768, 32767).to(torch.int16)
 
 
-def compose_blocks(region: torch.Tensor, dropon: torch.Tensor,
-                   mask_pix: torch.Tensor,
-                   quant: torch.Tensor) -> torch.Tensor:
-    """The compose step for a region of quantized coefficients (the port of
-    compose_region_auto).
+def compose_rows_ref(region: torch.Tensor, quant: torch.Tensor,
+                     dropon: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
+    """Plain version of the kernel's compose mode: broadcasts the compact
+    operands to the [N, 64] form and runs compose_blocks_ref.
 
-    region: [..., 8, 8] or [..., 64] int16; dropon/mask_pix: the same shape,
-    float-castable (already broadcast); quant: int-castable, broadcastable
-    to region's shape.  A CPU tensor runs compose_blocks_ref; a CUDA tensor
-    launches the CUDA kernel (compose_kernel.compose_blocks_cuda), which
-    raises rather than fall back.
+    region: int16 [n, h, w, 64] (any strides); quant: [n, 64] or [1, 64];
+    dropon/mask: [h * w, 64] (shared) or [n, h * w, 64] (per image).
+    Returns a new int16 [n, h, w, 64] tensor.
     """
-    shape = region.shape
-    n = region.numel() // 64
-    r = region.reshape(n, 64)
-    d = dropon.to(torch.float32).reshape(n, 64)
-    m = mask_pix.to(torch.float32).reshape(n, 64)
-    q = torch.broadcast_to(quant.to(torch.int32), shape).reshape(n, 64)
-    if region.device.type == "cpu":
-        out = compose_blocks_ref(r, d, m, q)
-    else:
-        from .compose_kernel import compose_blocks_cuda
+    n, h, w, _ = region.shape
+    hw = h * w
 
-        out = compose_blocks_cuda(r.contiguous(), d.contiguous(),
-                                  m.contiguous(), q.contiguous())
-    return out.reshape(shape)
+    def blocks(t, rows):  # [1 or n, rows, 64] -> [n * hw, 64]
+        return t.reshape(-1, rows, 64).expand(n, hw, 64).reshape(n * hw, 64)
+
+    out = compose_blocks_ref(region.reshape(n * hw, 64), blocks(dropon, hw),
+                             blocks(mask, hw), blocks(quant, 1))
+    return out.reshape(n, h, w, 64)
+
+
+def compose_rows(region: torch.Tensor, quant: torch.Tensor,
+                 dropon: torch.Tensor, mask: torch.Tensor,
+                 out: torch.Tensor | None = None) -> torch.Tensor:
+    """The compose step on compact operands (the port of
+    compose_region_auto, as the packed batch calls it).
+
+    region: int16 [n, h, w, 64] (a view of the packed row or of a grid's
+    footprint window); quant: int32 [n, 64] or [1, 64]; dropon/mask:
+    float32 [h * w, 64] or [n, h * w, 64]; ``out``: where the result goes
+    (may be region itself), a new tensor when None.  A CPU tensor runs
+    compose_rows_ref; a CUDA tensor launches the CUDA kernel
+    (compose_kernel.compose_rows_cuda), which raises rather than fall back.
+    Returns the result.
+    """
+    if region.device.type == "cpu":
+        res = compose_rows_ref(region, quant, dropon, mask)
+        if out is None:
+            return res
+        out.copy_(res)
+        return out
+    from .compose_kernel import compose_rows_cuda
+
+    return compose_rows_cuda(region, quant, dropon, mask, out)

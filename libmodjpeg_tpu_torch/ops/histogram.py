@@ -36,7 +36,7 @@ import types
 import numpy as np
 import torch
 
-from libmodjpeg_tpu import constants as C
+from .. import constants as C
 
 from ..parallel.mesh import ShardedRows
 
@@ -261,7 +261,7 @@ def optimal_tables(coefs, components, mcus_wide: int,
     """Device histogram -> native table build.  Returns the preset-table
     list codec.encode(preset_tables=...) accepts; the resulting file is
     byte-identical to the host OPTION_OPTIMIZE pass."""
-    from libmodjpeg_tpu import codec
+    from .. import codec
 
     freqs = symbol_freqs(coefs, components, mcus_wide, restart_interval,
                          device=device)

@@ -25,9 +25,9 @@ from typing import Optional, Sequence
 import numpy as np
 import torch
 
-from libmodjpeg_tpu.model import CoefImage, Dropon
+from ..model import CoefImage, Dropon
 
-from ..ops.compose import compose_blocks
+from ..ops.compose import compose_rows
 from ..state import DeviceDropon, compiled_dropon_to_torch
 from .mesh import Mesh, ShardedRows, batch_sharding, shard_rows, stream_mesh
 
@@ -38,18 +38,17 @@ def _compose_batch_component(grids: torch.Tensor, dropon_blocks: torch.Tensor,
     """Compose the footprint at (row0, col0) of every image of a batch, in
     place (the JAX version donates its input) and returned.
 
-    grids: [N, H, W, 8, 8] int16; dropon_blocks/mask_pix: [h, w, 8, 8]
-    float32 (broadcast over the batch) or [N, h, w, 8, 8] per image; quant:
-    [8, 8].  All on one device.  The footprint slice is copied into a
-    contiguous region for compose_blocks and the result copied back.
+    grids: contiguous [N, H, W, 8, 8] int16; dropon_blocks/mask_pix:
+    [h, w, 8, 8] float32 (shared by the batch) or [N, h, w, 8, 8] per
+    image; quant: [8, 8].  All on one device.  One compose_rows call reads
+    and writes the footprint window where it lies in ``grids``.
     """
     n = grids.shape[0]
     h, w = dropon_blocks.shape[-4:-2]
-    dropon_blocks = dropon_blocks.expand(n, h, w, 8, 8)
-    mask_pix = mask_pix.expand(n, h, w, 8, 8)
-    region = grids[:, row0:row0 + h, col0:col0 + w].contiguous()
-    grids[:, row0:row0 + h, col0:col0 + w] = compose_blocks(
-        region, dropon_blocks, mask_pix, quant)
+    region = grids[:, row0:row0 + h, col0:col0 + w].view(n, h, w, 64)
+    compose_rows(region, quant.reshape(1, 64).to(torch.int32),
+                 dropon_blocks.reshape(-1, h * w, 64),
+                 mask_pix.reshape(-1, h * w, 64), out=region)
     return grids
 
 
@@ -106,35 +105,38 @@ def _downunpack(wire: np.ndarray, cap: int):
 def _restore_uplink(lo: torch.Tensor, eidx: torch.Tensor,
                     evals: torch.Tensor) -> torch.Tensor:
     """Exact int16 [n, sz] from the int8 wire + exception scatter.  Pad
-    slots index sz: they land in a pad column that is sliced off."""
+    slots index sz: they land in a pad block that is sliced off (a whole
+    block, so every row's blocks stay 16-byte aligned for the kernel)."""
     n, sz = lo.shape
-    flat = torch.zeros((n, sz + 1), dtype=torch.int16, device=lo.device)
+    flat = torch.zeros((n, sz + 64), dtype=torch.int16, device=lo.device)
     flat[:, :sz] = lo
     flat.scatter_(1, eidx.long(), evals)
     return flat[:, :sz]
 
 
 def _compose_body(meta, flat, qstack, drops, masks) -> torch.Tensor:
-    """Compose every component of the packed rows.
+    """Compose every component of the packed rows into one new packed
+    [n, sum(meta) * 64] int16 tensor.
 
     flat: [n, sum(meta) * 64] int16, per row (file) the components'
     footprint blocks back to back; qstack: [n, ncomps * 64] int32, each
-    file's own quant tables; drops[c]/masks[c]: [meta[c], 64] float32.
-    Every block goes through the one compose kernel: an all-zero mask block
-    (transparent padding) is an exact pass-through inside it.
+    file's own quant tables; drops[c]/masks[c]: [meta[c], 64] float32,
+    shared by every row.  One compose_rows call per component reads its
+    slice of ``flat`` and its quant column of ``qstack`` where they lie
+    and writes the same slice of the output: nothing is broadcast, copied
+    or concatenated.  An all-zero mask block (transparent padding) is an
+    exact pass-through.
     """
     n = flat.shape[0]
-    outs, off = [], 0
+    out = torch.empty_like(flat)
+    off = 0
     for c, hw in enumerate(meta):
         sz = hw * 64
-        region = flat[:, off:off + sz].reshape(n * hw, 64)
+        compose_rows(flat[:, off:off + sz].view(n, 1, hw, 64),
+                     qstack[:, c * 64:(c + 1) * 64], drops[c], masks[c],
+                     out=out[:, off:off + sz].view(n, 1, hw, 64))
         off += sz
-        q = qstack[:, c * 64:(c + 1) * 64]
-        qb = q[:, None, :].expand(n, hw, 64).reshape(n * hw, 64)
-        db = drops[c][None].expand(n, hw, 64).reshape(n * hw, 64)
-        mb = masks[c][None].expand(n, hw, 64).reshape(n * hw, 64)
-        outs.append(compose_blocks(region, db, mb, qb).reshape(n, sz))
-    return outs[0] if len(outs) == 1 else torch.cat(outs, dim=1)
+    return out
 
 
 def _pack_down(out: torch.Tensor, cap: int):
@@ -182,7 +184,8 @@ class BatchComposer:
     """Reusable compiled-dropon compose over batches of same-geometry images.
 
     Compiles the dropon once against the template's geometry (or takes a
-    ready ``compiled`` CompiledDropon, from either package) and applies it
+    ready ``compiled`` CompiledDropon, a JAX-package one carried over
+    by state.from_reference) and applies it
     to any number of batches, on ``device`` (default "cuda").  With a
     ``mesh`` the batches are split over its "batch" axis and ``device``
     defaults to the mesh's first device (another device raises).  Without
@@ -400,7 +403,7 @@ class BatchComposer:
         plan.ok is False when the template is outside the surgical
         envelope."""
         if not hasattr(self, "_splan"):
-            from libmodjpeg_tpu.surgical import SurgicalPlan
+            from ..surgical import SurgicalPlan
 
             self._splan = SurgicalPlan(self.template, self._region_origins(),
                                        self.template.restart_interval)
@@ -445,7 +448,7 @@ class BatchComposer:
         import threading
         from concurrent.futures import ThreadPoolExecutor
 
-        from libmodjpeg_tpu import codec
+        from .. import codec
 
         own_pool = pool is None
         if own_pool:

@@ -4,9 +4,10 @@ libmodjpeg_tpu.parallel.grid).
 Each component's block-row axis is split into one row slab per mesh device
 (``_shard_grid``).  The effects are block-local, so each slab runs them on
 its own device.  A compose gathers the footprint's rows from the slabs that
-hold them to one device, runs ``compose_blocks`` there and writes each row
+hold them to one device, runs ``compose_rows`` there and writes each row
 back to its own slab: the data movement GSPMD inserts on the TPU, written
-out.  The results equal the single-device ones bit for bit.
+out.  A footprint inside one slab on the compose device (every
+single-device session) is composed in place, read where it lies.  The results equal the single-device ones bit for bit.
 
 Quirk kept from the JAX grid path: tint and luminance clamp the
 dequantized DC to +-2047 whatever the frame's precision (the API-level
@@ -18,11 +19,11 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from libmodjpeg_tpu import constants as C
-from libmodjpeg_tpu.model import CoefImage
+from .. import constants as C
+from ..model import CoefImage
 
 from ..ops import effects as fx
-from ..ops.compose import compose_blocks
+from ..ops.compose import compose_rows
 from .mesh import Mesh, ShardedRows, shard_rows
 
 
@@ -96,10 +97,11 @@ def _compose_rows(grid: ShardedRows, dropon: torch.Tensor,
     place of its slabs.
 
     ``dropon``/``mask_pix``: [h, w, 8, 8] float32 on the device the compose
-    runs on.  The footprint's rows are gathered from the slabs that hold
-    them into one contiguous region there, composed by ``compose_blocks``
-    (the kernel on a CUDA device), and each row is written back to its own
-    slab.
+    runs on.  When one slab on that device holds the whole footprint,
+    ``compose_rows`` (the kernel on a CUDA device) composes the window in
+    place of the slab.  Otherwise the footprint's rows are gathered from
+    the slabs that hold them into one region there, composed, and each row
+    is written back to its own slab.
     """
     dev = dropon.device
     h, w = dropon.shape[:2]
@@ -108,10 +110,16 @@ def _compose_rows(grid: ShardedRows, dropon: torch.Tensor,
     for k in range(row0 // per, (row0 + h - 1) // per + 1):
         pieces.append((k, max(row0, k * per) - k * per,
                        min(row0 + h, (k + 1) * per) - k * per))
+    q = torch.from_numpy(np.asarray(quant, np.int32).reshape(1, 64)).to(dev)
+    ops = (q, dropon.reshape(h * w, 64), mask_pix.reshape(h * w, 64))
+    k, a, b = pieces[0]
+    if len(pieces) == 1 and grid.slabs[k].device == dev:
+        window = grid.slabs[k][a:b, col0:col0 + w].view(1, h, w, 64)
+        compose_rows(window, *ops, out=window)
+        return
     region = torch.cat([grid.slabs[k][a:b, col0:col0 + w].to(dev)
                         for k, a, b in pieces])
-    q = torch.from_numpy(np.asarray(quant, np.int32)).to(dev)
-    out = compose_blocks(region, dropon, mask_pix, q)
+    out = compose_rows(region.view(1, h, w, 64), *ops).view(h, w, 8, 8)
     off = 0
     for k, a, b in pieces:
         slab = grid.slabs[k]
@@ -125,8 +133,8 @@ def _compiled_footprints(img: CoefImage, dropon, align: int, offset_x: int,
 
     Returns None when the placement is a no-op, else per component
     (row0, col0, dropon, mask_pix), the last two [h, w, 8, 8] float32 on
-    ``device``.  ``compiled``: a ready CompiledDropon (from either package)
-    to use instead of compiling.
+    ``device``.  ``compiled``: a ready CompiledDropon (a JAX-package one
+    carried over by state.from_reference) to use instead of compiling.
     """
     from ..composer import compile_dropon, plan_placement
     from ..state import compiled_dropon_to_torch

@@ -14,8 +14,8 @@ from typing import Optional
 
 import torch
 
-from libmodjpeg_tpu import constants as C
-from libmodjpeg_tpu.model import CoefImage, Dropon
+from .. import constants as C
+from ..model import CoefImage, Dropon
 
 from .grid import (_compiled_footprints, _compose_rows, _effect_rows,
                    _effect_steps, _shard_grid)
@@ -75,8 +75,9 @@ class GridSession:
                 offset_y: int = 0, *, compiled=None) -> "GridSession":
         """Compose in place on the resident grids.  The footprint is
         composed on the session's first device (the kernel on a CUDA
-        device).  ``compiled``: a ready CompiledDropon (from either package)
-        to use instead of compiling one."""
+        device).  ``compiled``: a ready CompiledDropon (a JAX-package one
+        carried over by state.from_reference) to use instead of compiling
+        one."""
         fps = _compiled_footprints(self.meta, dropon, align, offset_x,
                                    offset_y, self.device, compiled)
         for c, (row0, col0, drop, mask) in enumerate(fps or ()):
@@ -112,7 +113,7 @@ class GridSession:
         """Encode the session's image; the OPTION_OPTIMIZE statistics of a
         sequential Huffman encode run on the device (optimized_tables)
         instead of as a host walk."""
-        from libmodjpeg_tpu import codec
+        from .. import codec
 
         preset = None
         if (options & C.OPTION_OPTIMIZE) and not (

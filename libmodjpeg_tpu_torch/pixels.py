@@ -11,9 +11,9 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from libmodjpeg_tpu import constants as C
-from libmodjpeg_tpu.errors import UnsupportedColorspaceError
-from libmodjpeg_tpu.model import CoefImage
+from . import constants as C
+from .errors import UnsupportedColorspaceError
+from .model import CoefImage
 
 from .ops import dct as dctops
 

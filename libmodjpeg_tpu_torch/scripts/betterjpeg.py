@@ -24,10 +24,10 @@ import time
 import numpy as np
 import torch
 
-from libmodjpeg_tpu import constants as C
-from libmodjpeg_tpu.codec import decode
-from libmodjpeg_tpu.dropon import read_dropon_from_raw
-from libmodjpeg_tpu.png_reader import PNG_SIGNATURE, decode_png
+from .. import constants as C
+from ..codec import decode
+from ..dropon import read_dropon_from_raw
+from ..png_reader import PNG_SIGNATURE, decode_png
 
 from .. import compose, read_jpeg, write_jpeg
 from ..parallel.session import _require_device

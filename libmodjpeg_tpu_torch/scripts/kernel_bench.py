@@ -17,6 +17,9 @@ prints one line:
 where G is the fused compose's traffic rate and P the plain chain's (three
 f32 reads and one f32 write per coefficient per blend): the quantity that
 the JAX package's scripts/kernel_bench.py calls its elementwise roofline.
+The fused compose runs as the stream does: N blocks as 32 rows (one when
+N is not a multiple of 32), one quant table per row, the dropon and mask
+shared by the rows, so its traffic is the int16 region in and out.
 It is a ratio of two measured rates, not a roofline share; a roofline
 share needs the card's own measured peak, which this bench does not take.
 It needs a CUDA GPU and raises without one; there is no CPU run.
@@ -30,10 +33,11 @@ import numpy as np
 import torch
 
 from ..ops.compose import blend_blocks_m
-from ..ops.compose_kernel import blend_blocks_cuda, compose_blocks_cuda
+from ..ops.compose_kernel import blend_blocks_cuda, compose_rows_cuda
 
-# bytes the fused compose moves per block: i16 in/out + f32 d/m + i32 q
-BYTES_PER_BLOCK = (2 + 4 + 4 + 4 + 2) * 64
+# bytes the fused compose moves per block: the int16 region in and out (the
+# rows' quant tables and the shared dropon and mask are read once a launch)
+BYTES_PER_BLOCK = (2 + 2) * 64
 
 
 def chain(x1, x0, w, kind, r):
@@ -55,13 +59,15 @@ def chain(x1, x0, w, kind, r):
     return acc.sum()
 
 
-def chain_fused(region, x0, w, q, r):
+def chain_fused(region, q, x0, w, r):
     """``r`` dependent fused composes (int16 in/out incl. dequant and
-    requant); returns the sum of the last one."""
+    requant) of an int16 [rows, 1, hw, 64] region with one quant table per
+    row and the [hw, 64] dropon and mask shared; returns the sum of the
+    last one."""
     acc = region
     for i in range(r):
         xs = acc ^ (i % 2)  # every compose depends on the one before; int16
-        acc = compose_blocks_cuda(xs, x0, w, q)
+        acc = compose_rows_cuda(xs, q, x0, w)
     return acc.sum()
 
 
@@ -111,9 +117,13 @@ def main(argv=None) -> dict:
                          args.reps) / (args.reps * args.chain)
             times[kind] = dt
             line += f" {kind} {dt*1e6:.0f}us/blend"
-        region = put(rng.randint(-900, 900, (n, 64)).astype(np.int16))
-        q = put(rng.randint(1, 255, (n, 64)).astype(np.int32))
-        dt = _time_s(lambda: chain_fused(region, x0, w, q, args.chain),
+        rows = 32 if n % 32 == 0 else 1
+        hw = n // rows
+        region = put(rng.randint(-900, 900, (rows, 1, hw, 64))
+                     .astype(np.int16))
+        q = put(rng.randint(1, 255, (rows, 64)).astype(np.int32))
+        dt = _time_s(lambda: chain_fused(region, q, x0[:hw], w[:hw],
+                                         args.chain),
                      args.reps) / (args.reps * args.chain)
         times["fused"] = dt
         gbps = BYTES_PER_BLOCK * n / dt / 1e9

@@ -1,9 +1,12 @@
-"""Device-resident compose state built from a host CompiledDropon.
+"""Device-resident compose state built from a host CompiledDropon, and
+the carry-across from the JAX package's model objects.
 
-The compiled dropon (libmodjpeg_tpu.model.CompiledDropon, numpy arrays) is
-the same model in both packages, so a dropon compiled by either one can
-drive the port's compose: that is what lets a test run the two packages on
-identical state.
+The port's model (model.py) is a copy of the JAX package's, field for
+field.  ``from_reference`` turns a JAX-package CoefImage, Dropon or
+CompiledDropon into the port's own type by reading those fields, without
+importing the JAX package: that is how a test runs the two packages on
+identical state (for example a dropon compiled by the JAX package driving
+the port's compose).
 """
 
 from __future__ import annotations
@@ -13,7 +16,39 @@ import dataclasses
 import numpy as np
 import torch
 
-from libmodjpeg_tpu.model import CompiledDropon
+from .model import CoefImage, CompiledDropon, ComponentInfo, Dropon, Sampling
+
+_MODEL_TYPES = {t.__name__: t for t in (CoefImage, ComponentInfo, Sampling,
+                                        Dropon, CompiledDropon)}
+
+
+def _carry(value):
+    """A field value with every model object in it carried over and every
+    array copied into a numpy array."""
+    if dataclasses.is_dataclass(value) and not isinstance(value, type):
+        return from_reference(value)
+    if isinstance(value, (list, tuple)):
+        return type(value)(_carry(v) for v in value)
+    if isinstance(value, dict):
+        return {k: _carry(v) for k, v in value.items()}
+    if hasattr(value, "__array__") and not isinstance(value, np.generic):
+        return np.array(value)
+    return value
+
+
+def from_reference(obj):
+    """The port's own model object for ``obj``: a CoefImage, ComponentInfo,
+    Sampling, Dropon or CompiledDropon of either package, matched by its
+    class name.  Each field of the port's dataclass is read from ``obj`` by
+    name, arrays as new numpy arrays.  A port object comes back as it is.
+    """
+    cls = _MODEL_TYPES.get(type(obj).__name__)
+    if cls is None or not dataclasses.is_dataclass(obj):
+        raise TypeError(f"not a model object: {type(obj).__name__}")
+    if isinstance(obj, cls):
+        return obj
+    return cls(**{f.name: _carry(getattr(obj, f.name))
+                  for f in dataclasses.fields(cls)})
 
 
 @dataclasses.dataclass

@@ -18,6 +18,7 @@ from libmodjpeg_tpu import codec
 from libmodjpeg_tpu.encode_pixels import from_pixels
 from libmodjpeg_tpu.parallel import batch as jbatch
 from libmodjpeg_tpu_torch.parallel import batch as tbatch
+from libmodjpeg_tpu_torch.state import from_reference
 
 from conftest import FIXTURE_IMAGES
 
@@ -132,8 +133,9 @@ def _path_setup(datas, path):
 def _run_both(datas, dropon, kwargs, carry):
     tmpl = codec.decode(datas[0])
     jbc = jbatch.BatchComposer(tmpl, dropon, *_PLACE)
-    tbc = tbatch.BatchComposer(tmpl, dropon, *_PLACE, device="cpu",
-                               compiled=jbc.cd if carry else None)
+    tbc = tbatch.BatchComposer(
+        from_reference(tmpl), from_reference(dropon), *_PLACE, device="cpu",
+        compiled=from_reference(jbc.cd) if carry else None)
     jout = list(jbc.watermark_stream(iter(datas), batch=2, **kwargs))
     tout = list(tbc.watermark_stream(iter(datas), batch=2, **kwargs))
     return jbc, tbc, jout, tout
@@ -204,11 +206,12 @@ def test_compose_images_downlink_overflow_refetch(dropon):
     imgs = _heavy_images(3)
     place = (mj.ALIGN_TOP | mj.ALIGN_LEFT, 0, 0)
     jbc = jbatch.BatchComposer(imgs[0], dropon, *place)
-    tbc = tbatch.BatchComposer(imgs[0], dropon, *place, device="cpu",
-                               compiled=jbc.cd)
+    tbc = tbatch.BatchComposer(from_reference(imgs[0]),
+                               from_reference(dropon), *place, device="cpu",
+                               compiled=from_reference(jbc.cd))
     tbc._down_cap = 8
     jout = [im.copy() for im in imgs]
-    tout = [im.copy() for im in imgs]
+    tout = [from_reference(im) for im in imgs]
     jbc.compose_images(jout)
     tbc.compose_images(tout)
     assert tbc._down_cap > 8
@@ -266,8 +269,9 @@ def test_compose_batch_equal_jax_with_carried_compile(perturbed, dropon):
     from libmodjpeg_tpu_torch.parallel import compose_batch
 
     cd = jbatch.BatchComposer(perturbed[0], dropon, *_BATCH_PLACE).cd
-    got = compose_batch(perturbed, dropon, *_BATCH_PLACE, _mesh8(),
-                        compiled=cd)
+    got = compose_batch([from_reference(im) for im in perturbed],
+                        from_reference(dropon), *_BATCH_PLACE, _mesh8(),
+                        compiled=from_reference(cd))
     want = jcompose_batch(perturbed, dropon, *_BATCH_PLACE,
                           mesh=jmake_mesh())
     for a, b in zip(got, want):
@@ -285,11 +289,12 @@ def test_put_batch_compose_arrays_reuse(perturbed, dropon):
     place = (mj.ALIGN_TOP | mj.ALIGN_LEFT, 7, 9)
     base = perturbed[0]
     jbc = jbatch.BatchComposer(base, dropon, *place, mesh=jmake_mesh())
-    tbc = tbatch.BatchComposer(base, dropon, *place, _mesh8(),
-                               compiled=jbc.cd)
+    cd = from_reference(jbc.cd)
+    base, dropon = from_reference(base), from_reference(dropon)
+    tbc = tbatch.BatchComposer(base, dropon, *place, _mesh8(), compiled=cd)
     single = base.copy()       # a single compose on the same compiled dropon
     tbatch.BatchComposer(base, dropon, *place, device="cpu",
-                         compiled=jbc.cd).compose_images([single])
+                         compiled=cd).compose_images([single])
     for n in (8, 5):
         batches = tbc.put_batch([base] * n)
         assert all(isinstance(b, ShardedRows) and len(b.slabs) == 8

@@ -27,6 +27,7 @@ from libmodjpeg_tpu_torch.encode_pixels import from_pixels
 from libmodjpeg_tpu_torch.parallel import BatchComposer
 from libmodjpeg_tpu_torch.pixels import to_pixels
 from libmodjpeg_tpu_torch.scripts import betterjpeg as tb
+from libmodjpeg_tpu_torch.state import from_reference
 
 from conftest import FIXTURE_IMAGES, REPO
 from test_torch_cuda import write_png
@@ -190,9 +191,9 @@ def test_compile_rounding_cases(edited, compiled, jax_script, files,
         cd = jcomp.compile_dropon(dropon, img, p.blockoffset_x,
                                   p.blockoffset_y, p.crop_x, p.crop_y,
                                   p.crop_w, p.crop_h)
-        got = img.copy()
-        BatchComposer(img, dropon, _TL, 0, 0, device="cpu",
-                      compiled=cd).compose_images([got])
+        got = from_reference(img)
+        BatchComposer(got.copy(), dropon, _TL, 0, 0, device="cpu",
+                      compiled=from_reference(cd)).compose_images([got])
     differing = total = 0
     for c, m in enumerate(_edited_mcus(img, changed)):
         np.testing.assert_array_equal(got.coefs[c][~m], img.coefs[c][~m])

@@ -113,13 +113,14 @@ def _c_params(src: str, name: str) -> list:
 
 
 def test_cuda_source_exports_blend_entry_with_argtypes():
-    """compose.cu exports mjt_blend_blocks next to mjt_compose_blocks, and
+    """compose.cu exports mjt_blend_blocks next to mjt_compose_rows, and
     _build gives each the argtypes of its C parameter list (pointers and
-    the stream as c_void_p, the count as c_longlong)."""
+    the stream as c_void_p, counts and strides as c_longlong)."""
     with open(os.path.join(_build.CSRC, "compose.cu")) as f:
         src = f.read()
     assert "template <bool kBlend>" in src
-    for name in ("mjt_compose_blocks", "mjt_blend_blocks"):
+    assert set(_build.SIGNATURES) == {"mjt_compose_rows", "mjt_blend_blocks"}
+    for name in ("mjt_compose_rows", "mjt_blend_blocks"):
         params = _c_params(src, name)
         argtypes = _build.SIGNATURES[name]
         assert len(argtypes) == len(params)
@@ -137,4 +138,4 @@ def test_kernel_bench_raises_without_cuda(monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="CUDA"):
         kernel_bench.main(["--sizes", "16", "--reps", "1", "--chain", "1"])
-    assert kernel_bench.BYTES_PER_BLOCK == (2 + 4 + 4 + 4 + 2) * 64
+    assert kernel_bench.BYTES_PER_BLOCK == (2 + 2) * 64

@@ -1,6 +1,7 @@
-"""The CUDA kernel's compose and blend modes, the pixel decode, the device
-histogram, the grid paths and the betterjpeg script on the card (marked
-``cuda``; skips without a GPU).  This file imports no JAX, so it also runs on a machine without it:
+"""The CUDA kernel's compose (row form) and blend modes, the pixel decode,
+the device histogram, the grid paths and the betterjpeg script on the card
+(marked ``cuda``; skips without a GPU).  This file imports only the port,
+neither JAX nor the JAX package, so it runs on a machine without them:
 
     python -m pytest --noconftest -p no:cacheprovider -m cuda \
         tests/test_torch_cuda.py
@@ -24,33 +25,70 @@ def cuda():
     return torch.device("cuda")
 
 
-def _inputs(n, seed):
+def _inputs(n, h, w, seed, per_image=False):
+    """Row-form operands: an int16 [n, h, w, 64] region cut out of a wider
+    tensor (strided images and block rows), one quant table per image, the
+    dropon and mask shared (or per image) with a third of the positions
+    zero-mask."""
     rng = np.random.RandomState(seed)
-    region = rng.randint(-900, 901, (n, 64)).astype(np.int16)
-    x0 = (rng.randn(n, 64) * 300).astype(np.float32)
-    m = (rng.rand(n, 64) * 0.9).astype(np.float32)
-    q = rng.randint(1, 256, (n, 64)).astype(np.int32)
-    zero = rng.rand(n) < 1 / 3
-    m[zero] = 0.0
-    return [torch.from_numpy(a) for a in (region, x0, m, q)], zero
+    big = rng.randint(-900, 901, (n + 1, h + 1, w + 3, 64)).astype(np.int16)
+    region = torch.from_numpy(big)[:n, :h, 3:]
+    q = torch.from_numpy(rng.randint(1, 256, (n, 64)).astype(np.int32))
+    k = n if per_image else 1
+    x0 = (rng.randn(k, h * w, 64) * 300).astype(np.float32)
+    m = (rng.rand(k, h * w, 64) * 0.9).astype(np.float32)
+    zero = rng.rand(h * w) < 1 / 3
+    m[:, zero] = 0.0
+    d, mm = torch.from_numpy(x0), torch.from_numpy(m)
+    if not per_image:
+        d, mm = d[0], mm[0]
+    return [region, q, d, mm], zero
 
 
-@pytest.mark.parametrize("n", [1, 15, 17, 4099])
-def test_kernel_matches_plain_version(cuda, n):
-    """+-1 on under 0.5% of coefficients, zero-mask blocks exact, and one
-    launch counted per call."""
-    cpu, zero = _inputs(n, n)
+@pytest.mark.parametrize("shape", [(1, 1, 1), (1, 1, 15), (2, 1, 17),
+                                   (3, 2, 7), (1, 1, 4099)])
+@pytest.mark.parametrize("per_image", [False, True])
+def test_kernel_matches_plain_version(cuda, shape, per_image):
+    """+-1 on under 0.5% of coefficients against the row-form plain version
+    on the card and on the CPU, zero-mask blocks exact, the same result in
+    place of the region, and one launch counted per call."""
+    n, h, w = shape
+    cpu, zero = _inputs(n, h, w, n * 100 + w, per_image)
     dev = [t.to(cuda) for t in cpu]
+    dev[0] = torch.from_numpy(np.zeros((n + 1, h + 1, w + 3, 64),
+                                       np.int16)).to(cuda)[:n, :h, 3:]
+    dev[0].copy_(cpu[0])              # strided on the card as on the CPU
     before = ck.launches
-    got = ck.compose_blocks_cuda(*dev)
+    got = ck.compose_rows_cuda(*dev)
     torch.cuda.synchronize()
     assert ck.launches == before + 1
     got = got.cpu().numpy().astype(int)
-    for ref in (ck.compose_blocks_ref(*dev).cpu(),
-                ck.compose_blocks_ref(*cpu)):
+    for ref in (ck.compose_rows_ref(*dev).cpu(), ck.compose_rows_ref(*cpu)):
         d = np.abs(got - ref.numpy().astype(int))
         assert d.max() <= 1 and (d != 0).mean() < 0.005
-    np.testing.assert_array_equal(got[zero], cpu[0].numpy()[zero])
+    blocks = zero.reshape(h, w)
+    np.testing.assert_array_equal(got[:, blocks], cpu[0].numpy()[:, blocks])
+    ck.compose_rows_cuda(dev[0], *dev[1:], out=dev[0])
+    np.testing.assert_array_equal(dev[0].cpu().numpy(), got)
+
+
+@pytest.mark.parametrize("shape", [(1, 1, 33), (4, 3, 40)])
+def test_kernel_opaque_blocks_equal_plain_version(cuda, shape):
+    """Opaque blocks (mask exactly 1, whole-number dropon: a logo's core)
+    are recomputed in the plain version's order, so they equal it bit for
+    bit; the other blocks keep the +-1 bar."""
+    n, h, w = shape
+    cpu, _ = _inputs(n, h, w, 7 + w)
+    cpu[2] = torch.round(cpu[2])
+    opaque = np.arange(h * w) % 2 == 1
+    cpu[3][opaque] = 1.0
+    dev = [t.to(cuda) for t in cpu]
+    got = ck.compose_rows_cuda(*dev).cpu().numpy()
+    want = ck.compose_rows_ref(*cpu).numpy()
+    blocks = opaque.reshape(h, w)
+    np.testing.assert_array_equal(got[:, blocks], want[:, blocks])
+    d = np.abs(got.astype(int) - want.astype(int))
+    assert d.max() <= 1 and (d != 0).mean() < 0.005
 
 
 @pytest.mark.parametrize("n", [1, 15, 17, 4099])
@@ -84,7 +122,7 @@ def test_to_pixels_on_card_equals_cpu(cuda):
     import os
 
     import libmodjpeg_tpu_torch as mt
-    from libmodjpeg_tpu import codec
+    from libmodjpeg_tpu_torch import codec
     from libmodjpeg_tpu_torch.pixels import to_pixels
 
     fixtures = os.path.join(os.path.dirname(os.path.abspath(__file__)),
@@ -99,12 +137,17 @@ def test_to_pixels_on_card_equals_cpu(cuda):
 
 
 def test_kernel_rejects_bad_inputs(cuda):
-    cpu, _ = _inputs(4, 0)
+    cpu, _ = _inputs(2, 1, 4, 0)
     dev = [t.to(cuda) for t in cpu]
     with pytest.raises(TypeError):
-        ck.compose_blocks_cuda(dev[0].to(torch.int32), *dev[1:])
+        ck.compose_rows_cuda(dev[0].to(torch.int32), *dev[1:])
     with pytest.raises(ValueError):
-        ck.compose_blocks_cuda(dev[0], dev[1].t().contiguous().t(), *dev[2:])
+        ck.compose_rows_cuda(dev[0], dev[1], dev[2][:3], dev[3])
+    with pytest.raises(ValueError):
+        ck.compose_rows_cuda(dev[0], dev[1].cpu(), *dev[2:])
+    with pytest.raises(ValueError):  # a data pointer off 16-byte alignment
+        odd = torch.zeros(2 * 4 * 64 + 1, dtype=torch.int16, device=cuda)
+        ck.compose_rows_cuda(odd[1:].view(2, 1, 4, 64), *dev[1:])
 
 
 def test_packed_step_on_card_matches_cpu(cuda):
@@ -141,7 +184,7 @@ def test_batch_composer_on_card_matches_cpu(cuda):
     stream, event) vs the CPU path on the same compiled dropon, with a
     downlink capacity small enough that rows overflow and are refetched."""
     import libmodjpeg_tpu_torch as mt
-    from libmodjpeg_tpu import codec
+    from libmodjpeg_tpu_torch import codec
     from libmodjpeg_tpu_torch.encode_pixels import from_pixels
 
     rng = np.random.RandomState(9)
@@ -171,8 +214,8 @@ def test_batch_composer_on_card_matches_cpu(cuda):
 def _random_420(seed, mcus_w, mcus_h):
     """A 4:2:0 CoefImage with sparse AC and dense DC (the shape of
     tests/test_fuzz_roundtrip.py random_image, built here without JAX)."""
-    from libmodjpeg_tpu import constants as C
-    from libmodjpeg_tpu.model import CoefImage, ComponentInfo, Sampling
+    from libmodjpeg_tpu_torch import constants as C
+    from libmodjpeg_tpu_torch.model import CoefImage, ComponentInfo, Sampling
 
     rng = np.random.RandomState(seed)
     comps, coefs = [], []
@@ -231,7 +274,7 @@ def test_grid_session_on_card_matches_cpu(cuda):
     CPU chain outside the footprint (the compiled dropon carried across),
     +-1 on under 0.5% inside, bytes equal to the host optimize pass."""
     import libmodjpeg_tpu_torch as mt
-    from libmodjpeg_tpu import codec
+    from libmodjpeg_tpu_torch import codec
     from libmodjpeg_tpu_torch import composer
     from libmodjpeg_tpu_torch.parallel import BatchComposer, GridSession
 
@@ -292,7 +335,7 @@ def test_betterjpeg_on_card_matches_cpu(cuda, tmp_path):
     inside."""
     import os
 
-    from libmodjpeg_tpu import codec
+    from libmodjpeg_tpu_torch import codec
     from libmodjpeg_tpu_torch.pixels import to_pixels
     from libmodjpeg_tpu_torch.scripts import betterjpeg
 

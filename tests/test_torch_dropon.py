@@ -70,14 +70,16 @@ def test_error_parity(tmp_path):
     small = tmp_path / "small.jpg"
     small.write_bytes(b"\xff\xd8\xff")
     cases = [
-        (b"", {}, mj.NullDataError),
-        (str(small), {}, mj.NullDataError),
-        (str(bogus), {}, mj.UnsupportedFiletypeError),
+        (b"", {}, "NullDataError"),
+        (str(small), {}, "NullDataError"),
+        (str(bogus), {}, "UnsupportedFiletypeError"),
         # a mask of another size than the dropon
-        (_JPG, {"mask": _IMAGE}, mj.DroponDimensionsError),
+        (_JPG, {"mask": _IMAGE}, "DroponDimensionsError"),
     ]
+    # each package raises its own class of the same name and code
     for source, kw, err in cases:
-        with pytest.raises(err):
+        with pytest.raises(getattr(mj, err)):
             mj.read_dropon(source, **kw)
-        with pytest.raises(err):
+        with pytest.raises(getattr(mt, err)) as e:
             mt.read_dropon(source, device="cpu", **kw)
+        assert e.value.code == getattr(mj, err).code

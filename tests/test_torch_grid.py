@@ -22,6 +22,7 @@ from libmodjpeg_tpu_torch.parallel import (GridSession, batch_sharding,
                                            grid_sharding, make_mesh)
 from libmodjpeg_tpu_torch.parallel import mesh as tmesh
 from libmodjpeg_tpu_torch.parallel.batch import BatchComposer
+from libmodjpeg_tpu_torch.state import from_reference
 
 from conftest import FIXTURE_IMAGES as IMAGES
 from test_fuzz_roundtrip import random_image
@@ -151,7 +152,8 @@ def test_compose_sharded_straddling_slabs(base, logo):
     got = compose_sharded(base, logo, *place, mesh)
     _assert_same(got, mt.compose(base, logo, *place, device="cpu"))
     jbc = jbatch.BatchComposer(base, logo, *place)
-    carried = compose_sharded(base, logo, *place, mesh, compiled=jbc.cd)
+    carried = compose_sharded(from_reference(base), from_reference(logo),
+                              *place, mesh, compiled=from_reference(jbc.cd))
     _assert_same(carried, jpar.compose_sharded(
         base, logo, *place, jpar.make_mesh(batch=1, grid=8)))
 
@@ -189,7 +191,8 @@ def test_grid_session_chain_equal_jax(base, logo):
     """With the JAX compiled dropon carried across, the port's session
     chain equals JAX's GridSession chain exactly."""
     cd = jbatch.BatchComposer(base, logo, mj.ALIGN_CENTER, -9, 4).cd
-    got = _chain(GridSession(base, _mesh(2, 4)), logo, compiled=cd)
+    got = _chain(GridSession(from_reference(base), _mesh(2, 4)),
+                 from_reference(logo), compiled=from_reference(cd))
     want = _chain(jpar.GridSession(base, jpar.make_mesh(batch=2, grid=4)),
                   logo)
     _assert_same(got, want)

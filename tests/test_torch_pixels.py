@@ -20,6 +20,8 @@ from libmodjpeg_tpu.encode_pixels import from_pixels
 from libmodjpeg_tpu.errors import UnsupportedColorspaceError
 from libmodjpeg_tpu.ops import dct as jdct
 from libmodjpeg_tpu.pixels import to_pixels as jax_to_pixels
+from libmodjpeg_tpu_torch.errors import UnsupportedColorspaceError as \
+    TUnsupportedColorspaceError
 from libmodjpeg_tpu_torch.ops import dct as tdct
 from libmodjpeg_tpu_torch.pixels import to_pixels
 
@@ -132,10 +134,10 @@ def test_unsupported_colorspace_parity():
     for bad in (mj.COLORSPACE_RGBA, 99):
         with pytest.raises(UnsupportedColorspaceError):
             jax_to_pixels(img, bad)
-        with pytest.raises(UnsupportedColorspaceError):
+        with pytest.raises(TUnsupportedColorspaceError):
             to_pixels(img, bad, device="cpu")
     img.jpeg_color_space = 77
     with pytest.raises(UnsupportedColorspaceError):
         jax_to_pixels(img, C.COLORSPACE_RGB)
-    with pytest.raises(UnsupportedColorspaceError):
+    with pytest.raises(TUnsupportedColorspaceError):
         to_pixels(img, C.COLORSPACE_RGB, device="cpu")
