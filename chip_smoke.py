@@ -75,7 +75,17 @@ Phases, each of which raises on failure:
    +-1 on under 0.5% inside, and a no-change run that launches nothing and
    keeps every coefficient; then replays the compose step piece by piece
    (wire taken, downlink rows refetched, device time per step) and holds
-   its Y launch (375,000 blocks) against its plain version on the card.
+   its Y launch (375,000 blocks) against its plain version on the card;
+10. the port's bench (libmodjpeg_tpu_torch.scripts.bench) at its defaults:
+   32 1080p files, 5 interleaved windows of 5 passes per stream lane, the
+   codec lanes, stages, the surgical stages, grid effects on a 100.7 MP
+   GridSession and kernel_roofline against the card's measured copy rate.
+   Checks its asserted paths (it raises on a wrong one), 5 windows per
+   stream lane, 0 < kernel_roofline.frac <= 1.05, grid_effects, the card's
+   power limit and that it launched the kernel; then the scaling bench
+   (scripts.scaling_bench, 8 images, two corpus processes sharing the
+   card): byte-identical outputs across fan-out and kernel launches in the
+   two-host run.  Both print their JSON lines.
 
 Prints the card's name and power limit, then one JSON line describing the
 kernels (times, bounds, launches per path), and as the last line
@@ -119,6 +129,7 @@ BIG_MP = 100.0        # tests/test_bigimage.py with MJT_BIG=1
 BIG_RESTART = 64
 EFFECT_ROUNDS = 6     # bench.py grid_effects: KG
 N_COMPOSE_BATCH = 8
+SCALING_IMAGES = 8
 BJ_W, BJ_H = 6000, 4000   # a 24 MP photo
 BJ_QUALITY = 92
 FIXTURES = os.path.join(REPO, "tests", "fixtures")
@@ -1296,6 +1307,44 @@ def phase_betterjpeg():
     return launches
 
 
+# -- phase 10: the port's bench and scaling bench ----------------------------
+
+def phase_bench():
+    from libmodjpeg_tpu_torch.ops import compose_kernel as ck
+    from libmodjpeg_tpu_torch.scripts import bench, scaling_bench
+
+    t0 = time.perf_counter()
+    torch.cuda.synchronize()
+    ck.launches = 0
+    r = bench.main([])   # prints its JSON line; raises if a lane's path fails
+    launches = ck.launches
+    windows = {k: len(v["windows"]) for k, v in r["spread"].items()}
+    log(f"bench: {time.perf_counter() - t0:.1f} s, {launches} compose "
+        f"launches, windows per lane {windows}")
+    roof = r["kernel_roofline"]
+    if not 0 < roof["frac"] <= 1.05:
+        raise AssertionError(f"bench kernel_roofline frac {roof['frac']}")
+    if len(windows) != 5 or set(windows.values()) != {5}:
+        raise AssertionError(f"bench stream lanes: {windows}")
+    grid = r["grid_effects"]
+    if grid["rounds"] != EFFECT_ROUNDS or not grid["mp_s"] > 0:
+        raise AssertionError(f"bench grid_effects: {grid}")
+    if r["device"]["power_limit"] is None or r["blend_kernel"] != "cuda":
+        raise AssertionError(f"bench device: {r['device']}")
+    if launches == 0:
+        raise AssertionError("the bench never launched the kernel")
+
+    t0 = time.perf_counter()
+    s = scaling_bench.main(["--images", str(SCALING_IMAGES)])
+    scaling = sum(h["compose_launches"] for h in s["per_host_summaries"])
+    log(f"scaling bench: {time.perf_counter() - t0:.1f} s, "
+        f"{s['output_mismatches']} mismatches, {scaling} compose launches "
+        f"in the two-host run")
+    if s["output_mismatches"] or scaling == 0:
+        raise AssertionError(f"scaling bench: {s}")
+    return launches, scaling
+
+
 def main():
     from concurrent.futures import ThreadPoolExecutor
 
@@ -1314,6 +1363,7 @@ def main():
     grid_launches = phase_grid_session()
     corpus_launches, batch_launches = phase_corpus(corpus)
     bj_launches = phase_betterjpeg()
+    bench_launches, scaling_launches = phase_bench()
     # compose: one stream batch's launches (phase 4); blend: the kernel
     # bench's largest default size, inputs cold (phase 3b)
     k_ms, p_ms, nbytes, flops = step
@@ -1344,7 +1394,9 @@ def main():
                              "grid_session": grid_launches,
                              "corpus": corpus_launches,
                              "compose_batch": batch_launches,
-                             "betterjpeg": bj_launches},
+                             "betterjpeg": bj_launches,
+                             "bench": bench_launches,
+                             "scaling_bench": scaling_launches},
     }, {
         "name": "blend_blocks",
         "route": "cuda",

@@ -668,10 +668,13 @@ class BatchComposer:
                     return codec.encode_splice_band(
                         chunk[i], prepped[i], splice_band[0],
                         splice_band[1], splices[i])
-                except codec.EncodeError:
+                except codec.EncodeError as e:
                     # same hazard for the band splice, which must keep the
-                    # original tables for bit-identity
-                    fallback("splice: original tables lack a needed symbol")
+                    # original tables for bit-identity; any other encode
+                    # error is counted under its own message
+                    fallback("splice: original tables lack a needed symbol"
+                             if "has no Huffman code" in str(e)
+                             else f"splice: {e}")
                     return graft_full(
                         i, [prepped[i].coefs[c][r0:r0 + h, c0:c0 + w]
                             for c, (r0, c0, h, w) in enumerate(origins)])

@@ -382,3 +382,15 @@ def test_compose_sharded_one_card_mesh(cuda):
     want = mt.compose(img, logo, mt.ALIGN_CENTER, 3, -7, device=cuda)
     for a, b in zip(got.coefs, want.coefs):
         np.testing.assert_array_equal(a, b)
+
+
+def test_bench_kernel_roofline_on_card(cuda):
+    """The bench's kernel_roofline: the compose's bytes (768 B per block +
+    256) over its CUDA-event time, as a share of the card's own measured
+    copy rate, which it may not exceed by more than 5%."""
+    from libmodjpeg_tpu_torch.scripts import bench
+
+    r = bench.kernel_roofline(np.random.RandomState(0), reps=5)
+    assert r["bytes"] == 100_663_552 == bench.ROOF_BLOCKS * 768 + 256
+    assert 0 < r["frac"] <= 1.05
+    assert r["peak_gbps"] > 0 and r["published_peak_gbps"] == 3350.0

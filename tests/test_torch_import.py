@@ -12,6 +12,7 @@ from conftest import FIXTURE_IMAGES, REPO
 _PKG = os.path.join(REPO, "libmodjpeg_tpu_torch")
 
 _SCRIPT = r"""
+import os
 import sys
 sys.modules["jax"] = None          # any `import jax` now raises ImportError
 sys.modules["libmodjpeg_tpu"] = None   # ... and any import of the JAX package
@@ -62,6 +63,16 @@ assert rc == 0 and json.loads(buf.getvalue())["files_done"] == 1, rc
 sess = session.GridSession(img, device="cpu").effect("pixelate")
 sess.compose(d, mt.ALIGN_CENTER, 3, -5)
 assert sess.to_jpeg(options=mt.OPTION_OPTIMIZE)[:2] == b"\xff\xd8"
+# the bench at its smallest, and the scaling bench's corpus
+from libmodjpeg_tpu_torch.scripts import bench, scaling_bench
+buf = io.StringIO()
+with contextlib.redirect_stdout(buf):
+    r = bench.main(["--batch", "1", "--iters", "1", "--windows", "1",
+                    "--grid-size", "128x64"], device="cpu")
+assert json.loads(buf.getvalue()) == r and r["value"] > 0, r
+os.makedirs({scaling_in!r})
+scaling_bench.synth_corpus({scaling_in!r}, 1, 0.05)
+assert mt.read_jpeg(os.path.join({scaling_in!r}, "img0000.jpg")).width > 0
 leaked = sorted(m for m in sys.modules
                 if (m == "jax" or m.startswith("jax.")
                     or m == "libmodjpeg_tpu" or m.startswith("libmodjpeg_tpu."))
@@ -79,8 +90,9 @@ print("OK", changed)
 def test_port_composes_with_jax_blocked(tmp_path):
     """A fresh interpreter (the test process already imported jax) with jax
     and libmodjpeg_tpu blocked drives compose, watermark, the CLI with and
-    without -X, betterjpeg, the corpus CLI and a GridSession compose: the
-    port needs neither package, and loads its own codec library."""
+    without -X, betterjpeg, the corpus CLI, a GridSession compose, the
+    bench and the scaling bench's corpus: the port needs neither package,
+    and loads its own codec library."""
     script = _SCRIPT.format(repo=REPO,
                             img=os.path.join(FIXTURE_IMAGES, "image.jpg"),
                             png=os.path.join(FIXTURE_IMAGES, "dropon.png"),
@@ -88,7 +100,8 @@ def test_port_composes_with_jax_blocked(tmp_path):
                             mask=os.path.join(FIXTURE_IMAGES, "mask.jpg"),
                             out=str(tmp_path / "out.jpg"),
                             bj_out=str(tmp_path / "betterjpeg.jpg"),
-                            corpus_out=str(tmp_path / "corpus"))
+                            corpus_out=str(tmp_path / "corpus"),
+                            scaling_in=str(tmp_path / "scaling_in"))
     env = dict(os.environ)
     env.pop("PYTHONPATH", None)
     r = subprocess.run([sys.executable, "-c", script], capture_output=True,
@@ -134,7 +147,8 @@ def test_no_module_of_the_port_imports_jax():
             "codec/__init__.py", "jpegio.py", "surgical.py", "bitexact.py",
             "model.py", "ops/effects.py", "ops/histogram.py",
             "parallel/grid.py", "parallel/mesh.py", "parallel/session.py",
-            "scripts/betterjpeg.py", "scripts/kernel_bench.py"} <= scanned, \
+            "scripts/betterjpeg.py", "scripts/kernel_bench.py",
+            "scripts/bench.py", "scripts/scaling_bench.py"} <= scanned, \
         scanned
 
 
