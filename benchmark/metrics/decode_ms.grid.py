@@ -1,0 +1,8 @@
+"""decode_ms.grid: the mean seconds per frame of the benchmark's
+``decode`` span around that step of the chain."""
+
+from benchmark import stats
+
+
+def read(rec):
+    return stats.span_mean_ms(rec, "decode")

@@ -1,0 +1,8 @@
+"""to_jpeg_ms.grid: the mean seconds per frame of the benchmark's
+``to_jpeg`` span around that step of the chain."""
+
+from benchmark import stats
+
+
+def read(rec):
+    return stats.span_mean_ms(rec, "to_jpeg")
