@@ -150,35 +150,36 @@ def watermark(data: bytes, dropon: "Dropon", align: int = 0,
     """
     import torch
 
-    from . import codec
+    from . import codec, tracing
     from .corpus import _geometry_key
     from .surgical import parse_structure
 
     from .parallel.batch import BatchComposer
 
-    # header-only geometry probe where possible; DNL-deferred-height streams
-    # (height 0 in the SOF) need a decode for their real height
-    st = parse_structure(data)
-    if st is not None and st.height == 0:
-        st = None
-    template = None
-    if st is not None:
-        gkey = st.geometry_key()
-    else:
-        template = codec.decode(data)
-        gkey = _geometry_key(template)
-    dev = torch.device(device)
-    key = (_dropon_fingerprint(dropon), gkey, align, offset_x, offset_y,
-           str(dev))
-    bc = _WATERMARK_CACHE.get(key)
-    if bc is None:
-        if template is None:
+    with tracing.span("mjt.watermark.probe"):
+        # header-only geometry probe where possible; DNL-deferred-height
+        # streams (height 0 in the SOF) need a decode for their real height
+        st = parse_structure(data)
+        if st is not None and st.height == 0:
+            st = None
+        template = None
+        if st is not None:
+            gkey = st.geometry_key()
+        else:
             template = codec.decode(data)
-        bc = BatchComposer(template, dropon, align, offset_x, offset_y,
-                           device=dev)
-        while len(_WATERMARK_CACHE) >= _WATERMARK_CACHE_MAX:
-            _WATERMARK_CACHE.pop(next(iter(_WATERMARK_CACHE)))
-        _WATERMARK_CACHE[key] = bc
+            gkey = _geometry_key(template)
+        dev = torch.device(device)
+        key = (_dropon_fingerprint(dropon), gkey, align, offset_x, offset_y,
+               str(dev))
+        bc = _WATERMARK_CACHE.get(key)
+        if bc is None:
+            if template is None:
+                template = codec.decode(data)
+            bc = BatchComposer(template, dropon, align, offset_x, offset_y,
+                               device=dev)
+            while len(_WATERMARK_CACHE) >= _WATERMARK_CACHE_MAX:
+                _WATERMARK_CACHE.pop(next(iter(_WATERMARK_CACHE)))
+            _WATERMARK_CACHE[key] = bc
     if bc.noop:
         return codec.encode(template if template is not None
                             else codec.decode(data))

@@ -390,6 +390,9 @@ def decode_band(data: bytes, row0: int, row1: int, max_pixel: int = 0):
     time) and the suffix is skip-indexed only (bit-shift-copied at encode
     time with a one-MCU DC seam fix).  Returns (CoefImage, band_splice)
     where rows outside the band are ZERO (never read by splice users).
+    band_splice[13:16] are the native decode's phases in nanoseconds
+    (destuff + prefix skip walk, band decode, band-end re-walk + suffix
+    walk); encode_splice_band reads only band_splice[:13].
     row1 < 0 means "to the bottom" (the decode_tail shape).  Raises
     SpliceIneligible outside the envelope."""
     lib = _load()

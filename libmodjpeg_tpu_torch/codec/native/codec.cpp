@@ -19,12 +19,12 @@
 #include <algorithm>
 #include <array>
 #include <atomic>
+#include <chrono>
 #include <condition_variable>
 #include <cstdint>
 #include <cstdio>
 #include <climits>
 #include <cstring>
-#include <ctime>
 #include <memory>
 #include <mutex>
 #include <stdexcept>

@@ -37,6 +37,7 @@ import numpy as np
 import torch
 
 from .. import constants as C
+from .. import tracing
 
 from ..parallel.mesh import ShardedRows
 
@@ -229,20 +230,23 @@ def symbol_freqs(coefs, components, mcus_wide: int,
     dc = _new_hist(ns * _DC_BINS, first)
     ac = _new_hist(ns * _AC_BINS, first)
     partial = {}                                   # device -> AC hist there
-    for plane, pred, slot in zip(planes, preds, slots):
-        dc_parts = []
-        for slab in plane.real_slabs():
-            blocks = slab.reshape(-1, 64)
-            dev = blocks.device
-            if dev not in partial:
-                partial[dev] = (ac if dev == first else
-                                torch.zeros_like(ac, device=dev))
-            _ac_hist_into(partial[dev], blocks, slot)
-            dc_parts.append(blocks[:, 0].to(first))
-        _dc_hist_into(dc, torch.cat(dc_parts), pred, slot)
-    for dev, h in partial.items():
-        if dev != first:
-            ac += h.to(first)
+    # the counting, up to the totals' copy to the host (a device span on
+    # the first device while tracing is on)
+    with tracing.device_span("mjt.grid.histogram", first):
+        for plane, pred, slot in zip(planes, preds, slots):
+            dc_parts = []
+            for slab in plane.real_slabs():
+                blocks = slab.reshape(-1, 64)
+                dev = blocks.device
+                if dev not in partial:
+                    partial[dev] = (ac if dev == first else
+                                    torch.zeros_like(ac, device=dev))
+                _ac_hist_into(partial[dev], blocks, slot)
+                dc_parts.append(blocks[:, 0].to(first))
+            _dc_hist_into(dc, torch.cat(dc_parts), pred, slot)
+        for dev, h in partial.items():
+            if dev != first:
+                ac += h.to(first)
     dc_h = dc[:-_DUMP].reshape(ns, _DC_BINS).cpu().numpy()
     ac_h = ac[:-_DUMP].reshape(ns, _AC_BINS).cpu().numpy()
     freqs: dict = {}

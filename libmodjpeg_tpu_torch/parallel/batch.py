@@ -8,9 +8,11 @@ int8+exceptions uplink with one scatter, runs the compose kernel once per
 component and packs the downlink the same way.  On a CUDA device the step
 runs on the composer's own stream for that device, fed from pinned host
 buffers, and a CUDA event marks the end of its device->host copy; on the
-CPU it runs synchronously.  With a stream mesh (several local cards, or an
-explicit ``mesh``) the packed rows of a batch are split into one equal
-slab per device of the mesh's "batch" axis.
+CPU it runs synchronously.  While tracing is on (``tracing``), the step
+is a device span from before its first host->device copy to that event.
+With a stream mesh (several local cards, or an explicit ``mesh``) the
+packed rows of a batch are split into one equal slab per device of the
+mesh's "batch" axis.
 
 ``put_batch``/``compose_arrays``/``compose_batch`` compose whole
 [N, H, W, 8, 8] image batches that stay on the device (split over the
@@ -19,17 +21,21 @@ mesh's "batch" axis when one is given).
 
 from __future__ import annotations
 
+import itertools
 import time
 from typing import Optional, Sequence
 
 import numpy as np
 import torch
 
+from .. import tracing
 from ..model import CoefImage, Dropon
 
 from ..ops.compose import compose_rows
 from ..state import DeviceDropon, compiled_dropon_to_torch
 from .mesh import Mesh, ShardedRows, batch_sharding, shard_rows, stream_mesh
+
+_STREAMS = itertools.count()  # the ``stream`` id of each watermark_stream
 
 
 def _compose_batch_component(grids: torch.Tensor, dropon_blocks: torch.Tensor,
@@ -310,7 +316,8 @@ class BatchComposer:
         """Queue the device step for one slab of rows on ``dev``: host =
         the wire arrays then qstack.  Returns (dev, downlink wire on the
         host, raw output on dev, event or None, what must stay referenced
-        until the event has been waited on)."""
+        until the event has been waited on, the step's device span or
+        None)."""
         dd = self._dropon_on(dev)
         stream = self._streams.get(dev)
         if stream is None:
@@ -318,19 +325,23 @@ class BatchComposer:
             wire = tuple(t[:-1]) if packed else t[0]
             down, raw = packed_compose(self._meta, wire, t[-1], dd.drops,
                                        dd.masks, cap)
-            return (dev, down.cpu(), raw, None, ())
+            return (dev, down.cpu(), raw, None, (), None)
         with torch.cuda.stream(stream):
-            t = [torch.from_numpy(a).pin_memory().to(dev, non_blocking=True)
-                 for a in host]
-            wire = tuple(t[:-1]) if packed else t[0]
-            down_dev, raw = packed_compose(self._meta, wire, t[-1], dd.drops,
-                                           dd.masks, cap)
-            down = torch.empty(down_dev.shape, dtype=down_dev.dtype,
-                               pin_memory=True)
-            down.copy_(down_dev, non_blocking=True)
-            event = torch.cuda.Event()
-            event.record(stream)
-        return (dev, down, raw, event, (t, down_dev))
+            pinned = [torch.from_numpy(a).pin_memory() for a in host]
+            with tracing.device_span("mjt.stream.device", stream) as step:
+                t = [a.to(dev, non_blocking=True) for a in pinned]
+                wire = tuple(t[:-1]) if packed else t[0]
+                down_dev, raw = packed_compose(self._meta, wire, t[-1],
+                                               dd.drops, dd.masks, cap)
+                down = torch.empty(down_dev.shape, dtype=down_dev.dtype,
+                                   pin_memory=True)
+                down.copy_(down_dev, non_blocking=True)
+            if step is None:
+                event = torch.cuda.Event()
+                event.record(stream)
+            else:
+                event = step.end_event
+        return (dev, down, raw, event, (t, down_dev), step)
 
     def _fetch_rows(self, dev, raw: torch.Tensor, idx: np.ndarray):
         """Rows ``idx`` of a slab's raw output, copied to the host on the
@@ -346,7 +357,7 @@ class BatchComposer:
         """Wait for a _pack_regions result: parts[c][i] = [h, w, 8, 8]."""
         parts, n, cap = pending
         downs = []
-        for _dev, down, _raw, event, _keep in parts:
+        for _dev, down, _raw, event, _keep, _step in parts:
             if event is not None:
                 event.synchronize()  # releases the GIL while it waits
             downs.append(down.numpy())
@@ -357,7 +368,8 @@ class BatchComposer:
             # rare: restore overflowed rows from the raw output still on the
             # device, then widen the capacity bucket for the next batches
             per = parts[0][2].shape[0]
-            for k, (dev, _down, raw, _event, _keep) in enumerate(parts):
+            for k, (dev, _down, raw, _event, _keep, _step) in enumerate(
+                    parts):
                 rows = over[(over >= k * per) & (over < (k + 1) * per)]
                 if rows.size:
                     flat[rows] = self._fetch_rows(dev, raw, rows - k * per)
@@ -420,61 +432,9 @@ class BatchComposer:
         for i, planes in enumerate(planes_list):
             plan.scatter(planes, [p[i] for p in parts])
 
-    def watermark_stream(self, datas, *, batch: int = 32, pool=None,
-                         options: int = 0, restart_interval=None,
-                         lookahead: int = 2, surgical=None,
-                         max_pixel: int = 0):
-        """Streaming watermark pipeline: JPEG bytes in -> JPEG bytes out.
-
-        Four overlapped stages, each on its own thread: host entropy decode
-        (thread pool), pack + host->device dispatch, device->host fetch,
-        and host scatter + entropy encode (thread pool).  Yields encoded
-        bytes in input order.
-
-        Routing is per file.  Sequential-Huffman input with restart markers
-        and no re-encode options takes the surgical splice (only the restart
-        segments the footprint touches are entropy-coded); restart-free
-        sequential input takes the band splice (only the footprint's MCU
-        rows are decoded and re-encoded); every other file, and every file
-        under ``surgical=False``, takes the full decode/re-encode path.
-        Output coefficients are identical on every path.  A file that cannot
-        take its batch's splice falls back to the full path and is counted
-        by reason in ``last_fallback_reasons``.  ``last_stream_path`` is
-        "surgical", "splice", "mixed" or "full", and ``last_stream_stats``
-        holds per-stage cumulative seconds.
-        """
-        import os
-        import queue
-        import threading
-        from concurrent.futures import ThreadPoolExecutor
-
-        from .. import codec
-
-        own_pool = pool is None
-        if own_pool:
-            pool = ThreadPoolExecutor(max_workers=max(2, os.cpu_count() or 2))
-        # three hand-off queues: producer (decode) -> dispatcher (pack +
-        # host->device) -> fetcher (device->host) -> consumer (scatter +
-        # encode)
-        q0: queue.Queue = queue.Queue(maxsize=1)
-        q: queue.Queue = queue.Queue(
-            maxsize=max(1, lookahead - lookahead // 2))
-        q2: queue.Queue = queue.Queue(maxsize=max(1, lookahead // 2))
-        stop = object()
-        closed = threading.Event()
-
-        def put_to(dst, item) -> bool:
-            while not closed.is_set():
-                try:
-                    dst.put(item, timeout=0.2)
-                    return True
-                except queue.Full:
-                    pass
-            return False
-
-        def put(item) -> bool:
-            return put_to(q, item)
-
+    def _stream_route(self, surgical, options: int, restart_interval):
+        """(surgical plan or None, band rows (row0, row1) or None) for a
+        stream; sets last_stream_path and clears last_fallback_reasons."""
         plan = None
         if surgical is not False and not self.noop and options == 0 and (
                 restart_interval is None
@@ -506,14 +466,114 @@ class BatchComposer:
                                  "splice" if splice_band is not None else
                                  "full")
         self.last_fallback_reasons = {}
-        # per-stage cumulative wall clocks (seconds): stage sums exceeding
-        # total wall = good overlap
-        stats = {"decode_s": 0.0, "pack_dispatch_s": 0.0, "fetch_s": 0.0,
-                 "scatter_s": 0.0, "encode_s": 0.0, "wall_s": 0.0,
-                 "batches": 0}
+        return plan, splice_band
+
+    def watermark_stream(self, datas, *, batch: int = 32, pool=None,
+                         options: int = 0, restart_interval=None,
+                         lookahead: int = 2, surgical=None,
+                         max_pixel: int = 0):
+        """Streaming watermark pipeline: JPEG bytes in -> JPEG bytes out.
+
+        Four overlapped stages, each on its own thread: host entropy decode
+        (thread pool), pack + host->device dispatch, device->host fetch,
+        and host scatter + entropy encode (thread pool).  Yields encoded
+        bytes in input order.
+
+        Routing is per file.  Sequential-Huffman input with restart markers
+        and no re-encode options takes the surgical splice (only the restart
+        segments the footprint touches are entropy-coded); restart-free
+        sequential input takes the band splice (only the footprint's MCU
+        rows are decoded and re-encoded); every other file, and every file
+        under ``surgical=False``, takes the full decode/re-encode path.
+        Output coefficients are identical on every path.  A file that cannot
+        take its batch's splice falls back to the full path and is counted
+        by reason in ``last_fallback_reasons``.  ``last_stream_path`` is
+        "surgical", "splice", "mixed" or "full".
+
+        ``last_stream_stats`` holds the stream's cumulative counters, in
+        seconds unless named otherwise.  Always on:
+
+        - ``batches``: batches the consumer took;
+        - ``start_s``: from entering the stream to three running threads
+          (the pool, the queues, the route and the threads);
+        - ``decode_s``: the producer's wall time in each batch's decode
+          tasks (surgical windows, band or full decodes);
+        - ``decode_cpu_s``: the thread CPU time of those tasks, summed over
+          files;
+        - ``band_prefix_s``, ``band_decode_s``, ``band_after_s``: the
+          native band decode's phases (destuff + prefix skip walk, band
+          decode, band-end re-walk + suffix walk), summed over band-splice
+          files;
+        - ``pack_dispatch_s``: the dispatcher's pack and device-step
+          dispatch;
+        - ``fetch_s``: the fetcher's wait for the device->host copy and
+          its unpack;
+        - ``scatter_s``: the consumer's scatter of composed regions;
+        - ``encode_s``: the consumer's own time from taking up each output
+          to yielding it (the encode tasks it waits for); the caller's time
+          between outputs is left out;
+        - ``encode_cpu_s``: the thread CPU time of the encode tasks, summed
+          over files;
+        - ``producer_blocked_s``: the producer waiting to hand a decoded
+          batch on;
+        - ``dispatcher_idle_s``, ``dispatcher_blocked_s``: the dispatcher
+          waiting for a decoded batch, and to hand a dispatched one on;
+        - ``fetcher_idle_s``, ``fetcher_blocked_s``: the same for the
+          fetcher;
+        - ``consumer_idle_s``: the consumer waiting for a fetched batch;
+        - ``stop_s``: closing the stream (the threads' joins, the pool's
+          shutdown).
+
+        Only while tracing is on (``tracing``): ``device_step_s``, each
+        batch's device step on its CUDA stream, from before its first
+        host->device copy to the end of its device->host copy, summed over
+        devices.  Each timed interval is also a span then
+        (``mjt.stream.*``, with ``stream``, ``batch`` and ``file`` ids).
+        """
+        import os
+        import queue
+        import threading
+        from concurrent.futures import ThreadPoolExecutor
+
+        from .. import codec
+
+        seq = next(_STREAMS)
+        stats = {"batches": 0, "start_s": 0.0, "decode_s": 0.0,
+                 "decode_cpu_s": 0.0, "band_prefix_s": 0.0,
+                 "band_decode_s": 0.0, "band_after_s": 0.0,
+                 "pack_dispatch_s": 0.0, "fetch_s": 0.0, "scatter_s": 0.0,
+                 "encode_s": 0.0, "encode_cpu_s": 0.0,
+                 "producer_blocked_s": 0.0, "dispatcher_idle_s": 0.0,
+                 "dispatcher_blocked_s": 0.0, "fetcher_idle_s": 0.0,
+                 "fetcher_blocked_s": 0.0, "consumer_idle_s": 0.0,
+                 "stop_s": 0.0}
         self.last_stream_stats = stats
-        t_start = time.perf_counter()
-        origins = None if self.noop else self._region_origins()
+        stop = object()
+        closed = threading.Event()
+
+        def get_from(src, key: str, ids: dict):
+            """The next item of ``src``, or None once the stream is closed;
+            the wait is stats[key] and the span mjt.stream.<key>."""
+            with tracing.timed(stats, key, f"mjt.stream.{key[:-2]}", **ids):
+                while not closed.is_set():
+                    try:
+                        return src.get(timeout=0.2)
+                    except queue.Empty:
+                        pass
+            return None
+
+        def put_to(dst, item, key: str, ids: dict) -> bool:
+            """Hand ``item`` on to ``dst`` (False once the stream is
+            closed); the wait is stats[key] and the span
+            mjt.stream.<key>."""
+            with tracing.timed(stats, key, f"mjt.stream.{key[:-2]}", **ids):
+                while not closed.is_set():
+                    try:
+                        dst.put(item, timeout=0.2)
+                        return True
+                    except queue.Full:
+                        pass
+            return False
 
         reasons_lock = threading.Lock()  # pool threads count fallbacks
 
@@ -523,7 +583,7 @@ class BatchComposer:
                     self.last_fallback_reasons.get(reason, 0) + 1
                 self.last_stream_path = "mixed"
 
-        def decode_batch(chunk):
+        def decode_batch(chunk, ids):
             """Decode a batch: surgical windows / splice bands where
             eligible, full decode otherwise."""
             n = len(chunk)
@@ -555,12 +615,22 @@ class BatchComposer:
                 return codec.decode(chunk[i], max_pixel=max_pixel,
                                     nthreads=1 if n > 1 else 0)
 
-            t0 = time.perf_counter()
-            prepped = list(pool.map(prep_one, range(n)))
-            stats["decode_s"] += time.perf_counter() - t0
-            return payloads, splices, prepped
+            def prep_task(i):
+                c0 = time.thread_time()
+                img = prep_one(i)
+                return img, time.thread_time() - c0
 
-        def dispatch_batch(payloads, prepped):
+            with tracing.timed(stats, "decode_s", "mjt.stream.decode", **ids):
+                done = list(pool.map(prep_task, range(n)))
+            stats["decode_cpu_s"] += sum(cpu for _, cpu in done)
+            for sp in splices:
+                if sp is not None:
+                    stats["band_prefix_s"] += sp[13] * 1e-9
+                    stats["band_decode_s"] += sp[14] * 1e-9
+                    stats["band_after_s"] += sp[15] * 1e-9
+            return payloads, splices, [img for img, _ in done]
+
+        def dispatch_batch(payloads, prepped, ids):
             """Gather footprint regions and dispatch the packed device step
             (one host->device transfer) — every path shares it."""
             if self.noop:
@@ -577,12 +647,12 @@ class BatchComposer:
                                     in enumerate(origins)])
                     quants.append([im.quant_table_for(c)
                                    for c in range(len(origins))])
-            t0 = time.perf_counter()
-            pending = self._pack_regions(regions, quants)
-            stats["pack_dispatch_s"] += time.perf_counter() - t0
-            return pending
+            with tracing.timed(stats, "pack_dispatch_s",
+                               "mjt.stream.dispatch", **ids):
+                return self._pack_regions(regions, quants)
 
         def producer():
+            b = first = 0
             try:
                 it = iter(datas)
                 while not closed.is_set():
@@ -594,55 +664,78 @@ class BatchComposer:
                             break
                     if not chunk:
                         break
-                    payloads, splices, prepped = decode_batch(chunk)
-                    if not put_to(q0, (chunk, payloads, splices, prepped)):
+                    ids = {"stream": seq, "batch": b, "file": first}
+                    payloads, splices, prepped = decode_batch(chunk, ids)
+                    if not put_to(q0, (ids, chunk, payloads, splices,
+                                       prepped), "producer_blocked_s", ids):
                         return
-                put_to(q0, stop)
+                    b += 1
+                    first += len(chunk)
+                put_to(q0, stop, "producer_blocked_s",
+                       {"stream": seq, "batch": b})
             except BaseException as e:  # surface decode errors to the consumer
-                put_to(q0, e)
+                put_to(q0, e, "producer_blocked_s",
+                       {"stream": seq, "batch": b})
 
         def dispatcher():
             """Pack + host->device dispatch off the decode thread, so batch
             i's upload overlaps batch i+1's decode."""
+            b = 0
             try:
-                while not closed.is_set():
-                    try:
-                        item = q0.get(timeout=0.2)
-                    except queue.Empty:
-                        continue
+                while True:
+                    item = get_from(q0, "dispatcher_idle_s",
+                                    {"stream": seq, "batch": b})
+                    if item is None:
+                        return
                     if item is stop or isinstance(item, BaseException):
-                        put(item)
+                        put_to(q, item, "dispatcher_blocked_s",
+                               {"stream": seq, "batch": b})
                         return
-                    chunk, payloads, splices, prepped = item
-                    pending = dispatch_batch(payloads, prepped)
-                    if not put((chunk, payloads, splices, prepped, pending)):
+                    ids, chunk, payloads, splices, prepped = item
+                    pending = dispatch_batch(payloads, prepped, ids)
+                    if not put_to(q, (ids, chunk, payloads, splices, prepped,
+                                      pending), "dispatcher_blocked_s", ids):
                         return
+                    b += 1
             except BaseException as e:
-                put(e)
+                put_to(q, e, "dispatcher_blocked_s",
+                       {"stream": seq, "batch": b})
 
         def fetcher():
             """Wait for the device->host transfer off the consumer thread, so
             batch i's wait overlaps batch i-1's (CPU-bound) encode."""
+            b = 0
             try:
-                while not closed.is_set():
-                    try:
-                        item = q.get(timeout=0.2)
-                    except queue.Empty:
-                        continue
-                    if item is stop or isinstance(item, BaseException):
-                        put_to(q2, item)
+                while True:
+                    item = get_from(q, "fetcher_idle_s",
+                                    {"stream": seq, "batch": b})
+                    if item is None:
                         return
-                    chunk, payloads, splices, prepped, pending = item
+                    if item is stop or isinstance(item, BaseException):
+                        put_to(q2, item, "fetcher_blocked_s",
+                               {"stream": seq, "batch": b})
+                        return
+                    ids, chunk, payloads, splices, prepped, pending = item
                     parts = None
                     if pending is not None:
-                        t0 = time.perf_counter()
-                        parts = self._unpack_regions(pending)
-                        stats["fetch_s"] += time.perf_counter() - t0
-                    if not put_to(q2,
-                                  (chunk, payloads, splices, prepped, parts)):
+                        with tracing.timed(stats, "fetch_s",
+                                           "mjt.stream.fetch", **ids):
+                            parts = self._unpack_regions(pending)
+                        # the device spans' end events have been waited on
+                        steps = [p[5].device_ms for p in pending[0]
+                                 if p[5] is not None]
+                        if steps:
+                            stats["device_step_s"] = (
+                                stats.get("device_step_s", 0.0)
+                                + sum(steps) * 1e-3)
+                    if not put_to(q2, (ids, chunk, payloads, splices,
+                                       prepped, parts),
+                                  "fetcher_blocked_s", ids):
                         return
+                    b += 1
             except BaseException as e:
-                put_to(q2, e)
+                put_to(q2, e, "fetcher_blocked_s",
+                       {"stream": seq, "batch": b})
 
         def graft_full(i, composed):
             """Full decode of file i with the composed footprint grafted in,
@@ -681,41 +774,75 @@ class BatchComposer:
             return codec.encode(prepped[i], options=options,
                                 restart_interval=restart_interval)
 
-        threads = [threading.Thread(target=f, daemon=True)
-                   for f in (producer, dispatcher, fetcher)]
-        for th in threads:
-            th.start()
+        def enc_task(i):
+            c0 = time.thread_time()
+            out = enc_one(i)
+            return out, time.thread_time() - c0
+
+        with tracing.timed(stats, "start_s", "mjt.stream.start", stream=seq):
+            own_pool = pool is None
+            if own_pool:
+                pool = ThreadPoolExecutor(
+                    max_workers=max(2, os.cpu_count() or 2))
+            # three hand-off queues: producer (decode) -> dispatcher (pack +
+            # host->device) -> fetcher (device->host) -> consumer (scatter +
+            # encode)
+            q0: queue.Queue = queue.Queue(maxsize=1)
+            q: queue.Queue = queue.Queue(
+                maxsize=max(1, lookahead - lookahead // 2))
+            q2: queue.Queue = queue.Queue(maxsize=max(1, lookahead // 2))
+            plan, splice_band = self._stream_route(surgical, options,
+                                                   restart_interval)
+            origins = None if self.noop else self._region_origins()
+            threads = [threading.Thread(target=f, daemon=True)
+                       for f in (producer, dispatcher, fetcher)]
+            for th in threads:
+                th.start()
         try:
             while True:
-                item = q2.get()
+                with tracing.timed(stats, "consumer_idle_s",
+                                   "mjt.stream.consumer_idle", stream=seq,
+                                   batch=stats["batches"]):
+                    item = q2.get()
                 if item is stop:
                     break
                 if isinstance(item, BaseException):
                     raise item
-                chunk, payloads, splices, prepped, parts = item
+                ids, chunk, payloads, splices, prepped, parts = item
                 stats["batches"] += 1
                 if parts is not None:
-                    t0 = time.perf_counter()
-                    for i in range(len(chunk)):
-                        regions_i = [p[i] for p in parts]
-                        if payloads[i] is not None:
-                            plan.scatter(prepped[i], regions_i)
-                        else:
-                            im = prepped[i]
-                            for c, (r0, c0, h, w) in enumerate(origins):
-                                im.coefs[c][r0:r0 + h, c0:c0 + w] = \
-                                    regions_i[c]
-                    stats["scatter_s"] += time.perf_counter() - t0
-                t0 = time.perf_counter()
-                yield from pool.map(enc_one, range(len(chunk)))
-                stats["encode_s"] += time.perf_counter() - t0
+                    with tracing.timed(stats, "scatter_s",
+                                       "mjt.stream.scatter", **ids):
+                        for i in range(len(chunk)):
+                            regions_i = [p[i] for p in parts]
+                            if payloads[i] is not None:
+                                plan.scatter(prepped[i], regions_i)
+                            else:
+                                im = prepped[i]
+                                for c, (r0, c0, h, w) in enumerate(origins):
+                                    im.coefs[c][r0:r0 + h, c0:c0 + w] = \
+                                        regions_i[c]
+                outs = None
+                for i in range(len(chunk)):
+                    # timed up to each output, so the caller's time at the
+                    # yield is not counted
+                    with tracing.timed(stats, "encode_s",
+                                       "mjt.stream.encode", stream=seq,
+                                       batch=ids["batch"],
+                                       file=ids["file"] + i):
+                        if outs is None:
+                            outs = pool.map(enc_task, range(len(chunk)))
+                        out, cpu = next(outs)
+                    stats["encode_cpu_s"] += cpu
+                    yield out
         finally:
-            stats["wall_s"] = time.perf_counter() - t_start
-            closed.set()
-            for th in threads:
-                th.join(timeout=2.0)
-            if own_pool:
-                pool.shutdown(wait=False)
+            with tracing.timed(stats, "stop_s", "mjt.stream.stop",
+                               stream=seq):
+                closed.set()
+                for th in threads:
+                    th.join(timeout=2.0)
+                if own_pool:
+                    pool.shutdown(wait=False)
 
     def put_batch(self, images: Sequence[CoefImage]) -> list:
         """Stack host images into device batches: per component an

@@ -5,21 +5,30 @@ For the 100 MP tiled-JPEG workload (BASELINE config-4) the coefficient
 grids go to the device (or are split over a mesh) once, flow through a
 chain of effects and composes there, and come back once at the end; the
 Huffman-optimize statistics are computed from the resident grids.
+
+While tracing is on (``tracing``) each step is a span with the session's
+id: ``mjt.grid.effect`` and ``mjt.grid.compose`` are device spans on the
+session's first device, ``mjt.grid.compile`` (the logo's placement and
+compile), ``mjt.grid.to_image`` and ``mjt.grid.encode`` host spans.
 """
 
 from __future__ import annotations
 
+import itertools
 import os
 from typing import Optional
 
 import torch
 
 from .. import constants as C
+from .. import tracing
 from ..model import CoefImage, Dropon
 
 from .grid import (_compiled_footprints, _compose_rows, _effect_rows,
                    _effect_steps, _shard_grid)
 from .mesh import Mesh, ShardedRows
+
+_SESSIONS = itertools.count()  # the ``session`` id of each GridSession
 
 
 def _require_device(device: torch.device) -> torch.device:
@@ -47,6 +56,7 @@ class GridSession:
                  device="cuda"):
         self.meta = img
         self.mesh = mesh
+        self._ids = {"session": next(_SESSIONS)}
         if mesh is None:
             self.device = _require_device(torch.device(device))
             # one slab: the whole grid on the device, no padding
@@ -65,10 +75,12 @@ class GridSession:
                cr_value: int = 0) -> "GridSession":
         """'grayscale' | 'pixelate' | 'tint' | 'luminance', with the JAX
         grid path's branches and its +-2047 DC clamp at any precision."""
-        for c, step, v in _effect_steps(self.meta, name, value, cb_value,
-                                        cr_value):
-            _effect_rows(self.grids[c], self.meta.quant_table_for(c), v,
-                         step)
+        with tracing.device_span("mjt.grid.effect", self.device,
+                                 **self._ids):
+            for c, step, v in _effect_steps(self.meta, name, value,
+                                            cb_value, cr_value):
+                _effect_rows(self.grids[c], self.meta.quant_table_for(c), v,
+                             step)
         return self
 
     def compose(self, dropon: Dropon, align: int = 0, offset_x: int = 0,
@@ -78,11 +90,14 @@ class GridSession:
         device).  ``compiled``: a ready CompiledDropon (a JAX-package one
         carried over by state.from_reference) to use instead of compiling
         one."""
-        fps = _compiled_footprints(self.meta, dropon, align, offset_x,
-                                   offset_y, self.device, compiled)
-        for c, (row0, col0, drop, mask) in enumerate(fps or ()):
-            _compose_rows(self.grids[c], drop, mask,
-                          self.meta.quant_table_for(c), row0, col0)
+        with tracing.span("mjt.grid.compile", **self._ids):
+            fps = _compiled_footprints(self.meta, dropon, align, offset_x,
+                                       offset_y, self.device, compiled)
+        with tracing.device_span("mjt.grid.compose", self.device,
+                                 **self._ids):
+            for c, (row0, col0, drop, mask) in enumerate(fps or ()):
+                _compose_rows(self.grids[c], drop, mask,
+                              self.meta.quant_table_for(c), row0, col0)
         return self
 
     def block_until_ready(self) -> "GridSession":
@@ -119,16 +134,19 @@ class GridSession:
         if (options & C.OPTION_OPTIMIZE) and not (
                 options & (C.OPTION_PROGRESSIVE | C.OPTION_ARITHMETRIC)):
             preset = self.optimized_tables(restart_interval)
-        return codec.encode(self.to_image(), options=options,
-                            restart_interval=restart_interval,
-                            nthreads=nthreads, preset_tables=preset)
+        image = self.to_image()
+        with tracing.span("mjt.grid.encode", **self._ids):
+            return codec.encode(image, options=options,
+                                restart_interval=restart_interval,
+                                nthreads=nthreads, preset_tables=preset)
 
     def to_image(self) -> CoefImage:
         """The session's image on the host (ShardedRows.numpy trims the
         padding rows)."""
-        out = self.meta.copy()
-        for c, g in enumerate(self.grids):
-            out.coefs[c] = g.numpy()
+        with tracing.span("mjt.grid.to_image", **self._ids):
+            out = self.meta.copy()
+            for c, g in enumerate(self.grids):
+                out.coefs[c] = g.numpy()
         return out
 
 

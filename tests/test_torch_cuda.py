@@ -307,6 +307,50 @@ def test_grid_session_on_card_matches_cpu(cuda):
                                 restart_interval=4)
 
 
+def test_device_spans_on_card(cuda):
+    """While tracing is on, the stream's device step and the grid's effect,
+    compose and histogram are device spans with a device time, the stream
+    counts device_step_s from them, and the bytes are those of an
+    untraced run; with tracing off the stream has no device_step_s."""
+    import libmodjpeg_tpu_torch as mt
+    from libmodjpeg_tpu_torch import codec, tracing
+    from libmodjpeg_tpu_torch.encode_pixels import from_pixels
+    from libmodjpeg_tpu_torch.parallel import GridSession
+
+    rng = np.random.RandomState(11)
+    datas = [codec.encode(from_pixels(
+        rng.randint(0, 256, (96, 160, 3)).astype(np.uint8), quality=85,
+        device="cpu")) for _ in range(5)]
+    logo = _fixture_logo()
+    place = (mt.ALIGN_BOTTOM | mt.ALIGN_RIGHT, -8, -8)
+    bc = tbatch.BatchComposer(codec.decode(datas[0]), logo, *place,
+                              device=cuda)
+    plain = list(bc.watermark_stream(iter(datas), batch=2))
+    assert "device_step_s" not in bc.last_stream_stats
+    tracing.clear()
+    with tracing.recording():
+        traced = list(bc.watermark_stream(iter(datas), batch=2))
+        sess = GridSession(codec.decode(datas[0]), device=cuda)
+        sess.effect("luminance", value=20).compose(logo, mt.ALIGN_CENTER)
+        out = sess.to_jpeg(options=mt.OPTION_OPTIMIZE)
+    assert traced == plain
+    assert out == codec.encode(sess.to_image(), options=mt.OPTION_OPTIMIZE)
+    spans, dropped = tracing.spans()
+    assert dropped == 0
+    steps = [s for s in spans if s.name == "mjt.stream.device"]
+    assert len(steps) == 3 and all(s.device_ms > 0 for s in steps)
+    assert {s.parent for s in steps} == {"mjt.stream.dispatch"}
+    assert [s.ids["batch"] for s in steps] == [0, 1, 2]
+    st = bc.last_stream_stats
+    assert st["device_step_s"] == pytest.approx(
+        sum(s.device_ms for s in steps) * 1e-3)
+    for name in ("mjt.grid.effect", "mjt.grid.compose",
+                 "mjt.grid.histogram"):
+        got = [s for s in spans if s.name == name]
+        assert len(got) == 1 and got[0].device_ms > 0, name
+    tracing.clear()
+
+
 def write_png(path, rgb):
     """RGB uint8 [H, W, 3] -> an 8-bit RGB PNG, filter type 0 on every row
     (the standard library only: the card's machine has no PIL)."""
