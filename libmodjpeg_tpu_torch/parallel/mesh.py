@@ -133,8 +133,23 @@ class ShardedRows:
         return out
 
     def numpy(self) -> np.ndarray:
-        """The real rows merged on the host."""
-        return torch.cat([s.cpu() for s in self.real_slabs()]).numpy()
+        """The real rows merged on the host, each slab copied once into its
+        rows of one new host tensor.  From a CUDA device that tensor is
+        page-locked (torch's caching host allocator) and each slab comes
+        down by an asynchronous copy, with no pageable staging and no host
+        copy after it.  The array returned keeps its tensor alive."""
+        s0 = self.slabs[0]
+        cuda = {s.device for s in self.slabs if s.device.type == "cuda"}
+        pinned = bool(cuda)
+        dest = torch.empty((self.rows,) + tuple(s0.shape[1:]),
+                           dtype=s0.dtype, pin_memory=pinned)
+        row = 0
+        for s in self.real_slabs():
+            dest[row:row + s.shape[0]].copy_(s, non_blocking=pinned)
+            row += s.shape[0]
+        for d in cuda:
+            torch.cuda.synchronize(d)
+        return dest.numpy()
 
 
 def shard_rows(arr, devices: Sequence) -> ShardedRows:

@@ -9,11 +9,13 @@ Huffman-optimize statistics are computed from the resident grids.
 While tracing is on (``tracing``) each step is a span with the session's
 id: ``mjt.grid.effect`` and ``mjt.grid.compose`` are device spans on the
 session's first device, ``mjt.grid.compile`` (the logo's placement and
-compile), ``mjt.grid.to_image`` and ``mjt.grid.encode`` host spans.
+compile), ``mjt.grid.to_image`` (with the byte counts of
+``last_to_image``) and ``mjt.grid.encode`` host spans.
 """
 
 from __future__ import annotations
 
+import dataclasses
 import itertools
 import os
 from typing import Optional
@@ -57,6 +59,7 @@ class GridSession:
         self.meta = img
         self.mesh = mesh
         self._ids = {"session": next(_SESSIONS)}
+        self.last_to_image: Optional[dict] = None
         if mesh is None:
             self.device = _require_device(torch.device(device))
             # one slab: the whole grid on the device, no padding
@@ -142,11 +145,36 @@ class GridSession:
 
     def to_image(self) -> CoefImage:
         """The session's image on the host (ShardedRows.numpy trims the
-        padding rows)."""
-        with tracing.span("mjt.grid.to_image", **self._ids):
-            out = self.meta.copy()
-            for c, g in enumerate(self.grids):
-                out.coefs[c] = g.numpy()
+        padding rows).  Its planes are new arrays that own their memory,
+        page-locked when the grids are on a CUDA device; the rest is a copy
+        of the input image's fields, whose planes are neither copied nor
+        touched.
+
+        ``last_to_image`` counts the call: ``bytes`` of the planes, of them
+        ``pinned_bytes`` in page-locked memory and ``host_copy_bytes``
+        merged from slabs on the host; while tracing is on the span
+        carries the same three numbers as ids."""
+        m = self.meta
+        with tracing.span("mjt.grid.to_image", **self._ids) as sp:
+            planes = [g.numpy() for g in self.grids]
+            out = dataclasses.replace(
+                m, coefs=planes,
+                components=[dataclasses.replace(ci) for ci in m.components],
+                quant_tables={k: v.copy() for k, v in m.quant_tables.items()},
+                sampling=dataclasses.replace(m.sampling),
+                markers=list(m.markers))
+            # asking a host plane is_pinned() would start a CUDA context
+            host = [any(s.device.type != "cuda" for s in g.slabs)
+                    for g in self.grids]
+            self.last_to_image = {
+                "bytes": sum(p.nbytes for p in planes),
+                "pinned_bytes": sum(
+                    p.nbytes for p, h in zip(planes, host)
+                    if not h and torch.from_numpy(p).is_pinned()),
+                "host_copy_bytes": sum(
+                    p.nbytes for p, h in zip(planes, host) if h)}
+            if sp is not None:
+                sp.ids.update(self.last_to_image)
         return out
 
 

@@ -307,6 +307,47 @@ def test_grid_session_on_card_matches_cpu(cuda):
                                 restart_interval=4)
 
 
+def test_grid_downlink_on_card_is_pinned_and_owned(cuda):
+    """to_image from the card: every plane page-locked, no host copy
+    counted, a later session's image (also after the earlier one is freed
+    back to the host allocator's cache) leaves the images held intact, and
+    the optimized encode equals the CPU session's bytes."""
+    import libmodjpeg_tpu_torch as mt
+    from libmodjpeg_tpu_torch.parallel import GridSession
+
+    img = _random_420(9, 48, 30)
+    before = [a.copy() for a in img.coefs]
+
+    def image(dev, value):          # every plane moves with ``value``
+        s = GridSession(img, device=dev).effect("luminance", value=value)
+        s.effect("tint", cb_value=value, cr_value=-value)
+        return s, s.to_image()
+
+    s1, first = image(cuda, 40)
+    kept = [p.copy() for p in first.coefs]
+    assert all(torch.from_numpy(p).is_pinned() for p in first.coefs)
+    nbytes = sum(p.nbytes for p in first.coefs)
+    assert s1.last_to_image == {"bytes": nbytes, "pinned_bytes": nbytes,
+                                "host_copy_bytes": 0}
+    _, second = image(cuda, -40)
+    for p, q, r in zip(first.coefs, kept, second.coefs):
+        np.testing.assert_array_equal(p, q)
+        assert not np.array_equal(p, r) and not np.shares_memory(p, r)
+    kept2 = [p.copy() for p in second.coefs]
+    del first
+    _, third = image(cuda, 40)
+    for p, q, r, k in zip(second.coefs, kept2, third.coefs, kept):
+        np.testing.assert_array_equal(p, q)
+        np.testing.assert_array_equal(r, k)
+    for a, b in zip(img.coefs, before):
+        np.testing.assert_array_equal(a, b)
+    data = {}
+    for dev in (cuda, "cpu"):
+        s, _ = image(dev, 40)
+        data[str(dev)] = s.to_jpeg(mt.OPTION_OPTIMIZE, 64)
+    assert data[str(cuda)] == data["cpu"]
+
+
 def test_device_spans_on_card(cuda):
     """While tracing is on, the stream's device step and the grid's effect,
     compose and histogram are device spans with a device time, the stream

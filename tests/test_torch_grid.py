@@ -17,6 +17,7 @@ from libmodjpeg_tpu import codec
 from libmodjpeg_tpu import constants as C
 from libmodjpeg_tpu import parallel as jpar
 from libmodjpeg_tpu.parallel import batch as jbatch
+from libmodjpeg_tpu_torch import tracing
 from libmodjpeg_tpu_torch.parallel import (GridSession, batch_sharding,
                                            compose_sharded, effects_sharded,
                                            grid_sharding, make_mesh)
@@ -218,6 +219,51 @@ def test_grid_session_leaves_input_alone(base, logo):
     _chain(GridSession(base, device="cpu"), logo)
     for a, b in zip(base.coefs, before):
         np.testing.assert_array_equal(a, b)
+
+
+@pytest.mark.parametrize("padded", [False, True], ids=["whole", "padded"])
+@pytest.mark.parametrize("slabs", [1, 2, 3])
+def test_downlink_owns_its_rows(slabs, padded):
+    """ShardedRows.numpy is the row concatenation of the real slabs in one
+    new array; GridSession.to_image equals the grids, its planes are the
+    caller's to write, and last_to_image and the span count their bytes."""
+    rng = np.random.RandomState(slabs)
+    rows = 6                       # splits evenly over 1, 2 or 3 slabs
+    per = -(-(rows + padded) // slabs)
+    arr = rng.randint(-999, 999, (rows, 5, 8, 8)).astype(np.int16)
+    full = np.concatenate([arr, np.full((per * slabs - rows, 5, 8, 8), -1,
+                                        np.int16)])
+    g = tmesh.ShardedRows([torch.from_numpy(full[k * per:(k + 1) * per])
+                           for k in range(slabs)], rows)
+    got = g.numpy()
+    np.testing.assert_array_equal(got, np.concatenate(
+        [s.numpy() for s in g.real_slabs()]))
+    np.testing.assert_array_equal(got, arr)
+    got += 1
+    np.testing.assert_array_equal(full[:rows], arr)
+
+    # 7 MCU rows leave padding rows in some plane over 2 or 3 slabs
+    img = from_reference(random_image(rng, "420", 4, 6 + padded))
+    before = [a.copy() for a in img.coefs]
+    sess = GridSession(img, None if slabs == 1 else _mesh(1, slabs),
+                       device="cpu")
+    with tracing.recording():
+        out = sess.to_image()
+    nbytes = sum(a.nbytes for a in before)
+    assert sess.last_to_image == {"bytes": nbytes, "pinned_bytes": 0,
+                                  "host_copy_bytes": nbytes}
+    sp = [s for s in tracing.spans()[0] if s.name == "mjt.grid.to_image"
+          and s.ids["session"] == sess._ids["session"]]
+    assert len(sp) == 1 and sp[0].ids == {**sess._ids, **sess.last_to_image}
+    for c, p in enumerate(out.coefs):
+        grid = sess.grids[c].numpy()
+        np.testing.assert_array_equal(p, grid)
+        np.testing.assert_array_equal(p, before[c])
+        p += 1
+        np.testing.assert_array_equal(sess.grids[c].numpy(), grid)
+        np.testing.assert_array_equal(img.coefs[c], before[c])
+    assert out.quant_tables[0] is not img.quant_tables[0]
+    assert out.components[0] is not img.components[0]
 
 
 def test_grid_session_cuda_without_card_raises(base):
