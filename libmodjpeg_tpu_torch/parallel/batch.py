@@ -497,9 +497,21 @@ class BatchComposer:
         - ``start_s``: from entering the stream to three running threads
           (the pool, the queues, the route and the threads);
         - ``decode_s``: the producer's wall time in each batch's decode
-          tasks (surgical windows, band or full decodes);
+          tasks (surgical extracts and windows, band or full decodes);
         - ``decode_cpu_s``: the thread CPU time of those tasks, summed over
           files;
+        - ``surgical_extract_s``: the part of ``decode_s`` in the batch's
+          surgical extracts (the whole-file parse and restart-marker scan,
+          the crafted mini-JPEGs);
+        - ``surgical_window_cpu_s``: the thread CPU time of the surgical
+          window decodes (the mini-JPEGs), summed over files;
+        - ``surgical_reencode_cpu_s``: the thread CPU time of the surgical
+          re-encodes (mini encode, its re-scan, the splice join), summed over
+          the files that took the surgical splice to the end;
+        - ``surgical_recoded_bytes``, ``surgical_entropy_bytes``: over those
+          files, the bytes of the touched segments' original entropy data,
+          and of the whole entropy-coded data (SOS header to EOI, restart
+          markers included);
         - ``band_prefix_s``, ``band_decode_s``, ``band_after_s``: the
           native band decode's phases (destuff + prefix skip walk, band
           decode, band-end re-walk + suffix walk), summed over band-splice
@@ -539,7 +551,10 @@ class BatchComposer:
 
         seq = next(_STREAMS)
         stats = {"batches": 0, "start_s": 0.0, "decode_s": 0.0,
-                 "decode_cpu_s": 0.0, "band_prefix_s": 0.0,
+                 "decode_cpu_s": 0.0, "surgical_extract_s": 0.0,
+                 "surgical_window_cpu_s": 0.0,
+                 "surgical_reencode_cpu_s": 0.0, "surgical_recoded_bytes": 0,
+                 "surgical_entropy_bytes": 0, "band_prefix_s": 0.0,
                  "band_decode_s": 0.0, "band_after_s": 0.0,
                  "pack_dispatch_s": 0.0, "fetch_s": 0.0, "scatter_s": 0.0,
                  "encode_s": 0.0, "encode_cpu_s": 0.0,
@@ -589,13 +604,11 @@ class BatchComposer:
             n = len(chunk)
             payloads = [None] * n
             splices = [None] * n
-            if plan is not None:
-                for i, (payload, reason) in enumerate(
-                        pool.map(plan.extract, chunk)):
-                    if payload is None:
-                        fallback(reason)
-                    else:
-                        payloads[i] = payload
+
+            def extract_task(data):
+                c0 = time.thread_time()
+                got = plan.extract(data)
+                return got, time.thread_time() - c0
 
             def prep_one(i):
                 if payloads[i] is not None:
@@ -620,9 +633,22 @@ class BatchComposer:
                 img = prep_one(i)
                 return img, time.thread_time() - c0
 
+            extract_cpu = 0.0
             with tracing.timed(stats, "decode_s", "mjt.stream.decode", **ids):
+                if plan is not None:
+                    with tracing.timed(stats, "surgical_extract_s",
+                                       "mjt.stream.surgical_extract", **ids):
+                        extracted = list(pool.map(extract_task, chunk))
+                    for i, ((payload, reason), cpu) in enumerate(extracted):
+                        extract_cpu += cpu
+                        if payload is None:
+                            fallback(reason)
+                        else:
+                            payloads[i] = payload
                 done = list(pool.map(prep_task, range(n)))
-            stats["decode_cpu_s"] += sum(cpu for _, cpu in done)
+            stats["decode_cpu_s"] += extract_cpu + sum(cpu for _, cpu in done)
+            stats["surgical_window_cpu_s"] += sum(
+                cpu for p, (_, cpu) in zip(payloads, done) if p is not None)
             for sp in splices:
                 if sp is not None:
                     stats["band_prefix_s"] += sp[13] * 1e-9
@@ -749,10 +775,16 @@ class BatchComposer:
         def enc_one(i):
             if payloads[i] is not None:
                 try:
-                    return plan.reencode(chunk[i], payloads[i], prepped[i])
+                    with tracing.span("mjt.stream.surgical_reencode",
+                                      stream=seq, batch=ids["batch"],
+                                      file=ids["file"] + i):
+                        return plan.reencode(chunk[i], payloads[i],
+                                             prepped[i])
                 except codec.EncodeError:
                     # the original (optimized) tables lack a code the
-                    # composed segment now needs: redo on the full path
+                    # composed segment now needs: redo on the full path,
+                    # which the surgical counters then leave out
+                    payloads[i] = None
                     fallback("surgical: original tables lack a needed "
                              "symbol")
                     return graft_full(i, plan.gather(prepped[i]))
@@ -834,6 +866,11 @@ class BatchComposer:
                             outs = pool.map(enc_task, range(len(chunk)))
                         out, cpu = next(outs)
                     stats["encode_cpu_s"] += cpu
+                    if payloads[i] is not None:     # a surgical answer
+                        stats["surgical_reencode_cpu_s"] += cpu
+                        stats["surgical_recoded_bytes"] += sum(
+                            e - s for s, e in payloads[i][1])
+                        stats["surgical_entropy_bytes"] += payloads[i][5]
                     yield out
         finally:
             with tracing.timed(stats, "stop_s", "mjt.stream.stop",

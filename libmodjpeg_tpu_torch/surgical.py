@@ -298,10 +298,14 @@ class SurgicalPlan:
         """Parse + scan one file; build the crafted mini-JPEG(s).
 
         Returns ``(payload, reason)``: payload is (crafted_jpegs,
-        seg_byte_ranges, structure, preset_tables, file_quants) when the file
-        is inside the surgical envelope, else None with a short reason string
-        (the caller falls back to the full pipeline for that file and can
-        count reasons for observability).
+        seg_byte_ranges, structure, preset_tables, file_quants,
+        entropy_bytes) when the file is inside the surgical envelope, else
+        None with a short reason string (the caller falls back to the full
+        pipeline for that file and can count reasons for observability).
+        ``entropy_bytes`` is the length of the file's entropy-coded data,
+        from the end of the SOS header to the EOI, restart markers included;
+        the touched segments' ``seg_byte_ranges`` are the part of it that
+        is re-coded.
 
         The file's OWN quant tables ride along in the payload: the device
         compose dequantizes each file with its own tables, so quant content
@@ -373,7 +377,8 @@ class SurgicalPlan:
                 parts.append(data[s:e])
             parts.append(b"\xff\xd9")
             crafted.append(b"".join(parts))
-        return (crafted, seg_ranges, st, preset, fquants), None
+        return (crafted, seg_ranges, st, preset, fquants,
+                end - st.entropy_start), None
 
     def decode_windows(self, extract) -> list:
         """Decode the crafted mini-JPEGs into concatenated window planes
@@ -406,7 +411,7 @@ class SurgicalPlan:
         the new segment bytes back between the original restart markers."""
         from . import codec
 
-        _, seg_ranges, st, preset, _fq = extract
+        seg_ranges, preset = extract[1], extract[3]
         tpl = self.template
         new_segs: list = []
         col = 0

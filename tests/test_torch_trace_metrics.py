@@ -13,7 +13,9 @@ from libmodjpeg_tpu_torch import tracing
 
 STREAM = {"batches": 4, "device_step_s": 0.004, "decode_cpu_s": 2.0,
           "encode_cpu_s": 1.6, "producer_blocked_s": 0.2,
-          "consumer_idle_s": 0.6}
+          "consumer_idle_s": 0.6, "surgical_extract_s": 0.08,
+          "surgical_window_cpu_s": 0.16, "surgical_reencode_cpu_s": 0.24,
+          "surgical_recoded_bytes": 31, "surgical_entropy_bytes": 1000}
 CALLS = [{"start_s": 0.002, "stop_s": 0.001, "encode_s": 0.003,
           "band_prefix_s": 0.011, "band_decode_s": 0.002,
           "band_after_s": 0.001},
@@ -41,6 +43,12 @@ EXPECTED = {
     "encode_cpu_ms.stream": ("stream", "encode_cpu_s", 400.0),
     "producer_blocked_ms.stream": ("stream", "producer_blocked_s", 50.0),
     "consumer_starved_ms.stream": ("stream", "consumer_idle_s", 150.0),
+    "surgical_extract_ms.stream": ("surgical", "surgical_extract_s", 20.0),
+    "surgical_window_cpu_ms.stream": ("surgical", "surgical_window_cpu_s",
+                                      40.0),
+    "surgical_reencode_cpu_ms.stream": ("surgical",
+                                        "surgical_reencode_cpu_s", 60.0),
+    "recoded_share.stream": ("surgical", "surgical_recoded_bytes", 3.1),
     "stream_setup_ms.single": ("calls", "stop_s", 4.0),
     "encode_counted_ms.single": ("calls", "encode_s", 2.0),
     "band_prefix_ms.single": ("calls", "band_prefix_s", 12.0),
@@ -53,6 +61,12 @@ EXPECTED = {
     "grid_encode_ms.grid": ("grid", None, 310.0),
 }
 DEVICE = {"effects_device_ms.grid", "histogram_ms.grid"}
+UNITS = {"recoded_share.stream": "%"}
+# the cells whose runs each kind of metric reads
+CELLS = {"stream": ["wm1080.stream-progressive", "wm1080rst.stream-restart"],
+         "surgical": ["wm1080rst.stream-restart"],
+         "calls": ["wm1080.single-call"],
+         "grid": ["fx100mp.grid-chain"]}
 
 
 @pytest.fixture(scope="module")
@@ -78,7 +92,7 @@ def _push_spans(device: bool = True) -> None:
 def _rec(kind: str) -> dict:
     rec = {"counters": {}, "starts": [10.0, 11.0], "ends": [11.0, 12.0],
            "window_end": 13.0, "spans": []}
-    if kind == "stream":
+    if kind in ("stream", "surgical"):
         rec["counters"]["stream"] = dict(STREAM)
     elif kind == "calls":
         rec["counters"]["calls"] = [dict(c) for c in CALLS]
@@ -91,10 +105,9 @@ def test_every_new_metric_is_declared(bench):
     declared = {m["name"]: m for m in bench.spec["per_layer"]}
     for name, (kind, _, _) in EXPECTED.items():
         m = declared[name]
-        assert m["source"] == "program_counter" and m["unit"] == "ms"
-        assert m["workloads"] == [{"stream": "wm1080.stream-progressive",
-                                   "calls": "wm1080.single-call",
-                                   "grid": "fx100mp.grid-chain"}[kind]]
+        assert m["source"] == "program_counter"
+        assert m["unit"] == UNITS.get(name, "ms")
+        assert m["workloads"] == CELLS[kind]
 
 
 @pytest.mark.parametrize("name", sorted(EXPECTED))
@@ -111,7 +124,7 @@ def test_reader_none_without_its_input(bench, monkeypatch, name):
     kind, key, _ = EXPECTED[name]
     read = bench.module("metrics", name).read
     rec = _rec(kind)
-    if kind == "stream":
+    if kind in ("stream", "surgical"):
         del rec["counters"]["stream"][key]
         assert read(rec) is None
         assert read({"counters": {"stream": {"batches": 0}}}) is None

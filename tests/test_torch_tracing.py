@@ -19,7 +19,10 @@ from libmodjpeg_tpu_torch.parallel import BatchComposer, GridSession
 from conftest import FIXTURE_IMAGES
 
 PLACE = (mt.ALIGN_BOTTOM | mt.ALIGN_RIGHT, -8, -8)
-ALWAYS_ON = {"batches", "start_s", "decode_s", "decode_cpu_s",
+SURGICAL = ("surgical_extract_s", "surgical_window_cpu_s",
+            "surgical_reencode_cpu_s", "surgical_recoded_bytes",
+            "surgical_entropy_bytes")
+ALWAYS_ON = {"batches", "start_s", "decode_s", "decode_cpu_s", *SURGICAL,
              "band_prefix_s", "band_decode_s", "band_after_s",
              "pack_dispatch_s", "fetch_s", "scatter_s", "encode_s",
              "encode_cpu_s", "producer_blocked_s", "dispatcher_idle_s",
@@ -43,6 +46,13 @@ def data():
     eligible, 16 MCU rows)."""
     with open(os.path.join(FIXTURE_IMAGES, "image.jpg"), "rb") as f:
         return tcodec.encode(tcodec.decode(f.read()))
+
+
+@pytest.fixture(scope="module")
+def rst_data(data):
+    """The same picture with a restart marker every 4 MCUs (the surgical
+    splice's input)."""
+    return tcodec.encode(tcodec.decode(data), restart_interval=4)
 
 
 @pytest.fixture(scope="module")
@@ -230,20 +240,23 @@ def test_one_file_watermark_counts_its_encode(data, dropon):
     assert names.index("mjt.stream.encode") < names.index("mjt.stream.stop")
 
 
-@pytest.mark.parametrize("surgical", [None, False], ids=["splice", "full"])
-def test_stream_counters(data, dropon, surgical):
+@pytest.mark.parametrize("path", ["splice", "full", "surgical"])
+def test_stream_counters(data, rst_data, dropon, path):
     """A stream of three batches: every documented counter, the waits
     non-negative, no wall_s, no device step off the card and with tracing
-    off; the caller's time at each output is not the stream's encode."""
-    bc = BatchComposer(tcodec.decode(data), dropon, *PLACE, device="cpu")
+    off; the caller's time at each output is not the stream's encode; the
+    band counters only on the band splice, the surgical ones only on the
+    surgical splice, the extract inside the decode."""
+    src = rst_data if path == "surgical" else data
+    bc = BatchComposer(tcodec.decode(src), dropon, *PLACE, device="cpu")
     n, pause = 7, 0.02
     outs = []
-    for out in bc.watermark_stream(iter([data] * n), batch=3,
-                                   surgical=surgical):
+    for out in bc.watermark_stream(iter([src] * n), batch=3,
+                                   surgical=False if path == "full" else None):
         outs.append(out)
         time.sleep(pause)
     assert len(outs) == n
-    assert bc.last_stream_path == ("splice" if surgical is None else "full")
+    assert bc.last_stream_path == path
     st = bc.last_stream_stats
     assert set(st) == ALWAYS_ON
     assert st["batches"] == 3
@@ -251,7 +264,52 @@ def test_stream_counters(data, dropon, surgical):
     assert st["encode_s"] > 0 and st["encode_cpu_s"] > 0
     assert st["encode_s"] < n * pause
     band = st["band_prefix_s"] + st["band_decode_s"] + st["band_after_s"]
-    assert (band > 0) == (surgical is None)
+    assert (band > 0) == (path == "splice")
+    assert all((st[k] > 0) == (path == "surgical") for k in SURGICAL), st
+    assert all(st[k] >= 0 for k in SURGICAL)
+    assert st["surgical_extract_s"] <= st["decode_s"]
+    assert st["surgical_window_cpu_s"] < st["decode_cpu_s"]
+    assert st["surgical_reencode_cpu_s"] <= st["encode_cpu_s"]
+    assert st["surgical_recoded_bytes"] <= st["surgical_entropy_bytes"]
+
+
+def test_surgical_spans_nest(rst_data, dropon):
+    """Each batch's mjt.stream.surgical_extract lies in its
+    mjt.stream.decode (same thread, same ids; the counter is the spans'
+    sum); each file's mjt.stream.surgical_reencode, taken on a pool
+    thread, carries the file's ids and lies in its batch's encode: after
+    the batch's first mjt.stream.encode starts, before the file's own
+    ends."""
+    bc = BatchComposer(tcodec.decode(rst_data), dropon, *PLACE, device="cpu")
+    with tracing.recording():
+        outs = list(bc.watermark_stream(iter([rst_data] * 5), batch=2))
+    assert len(outs) == 5 and bc.last_stream_path == "surgical"
+    got = tracing.spans()[0]
+    by_name = {}
+    for s in got:
+        by_name.setdefault(s.name, []).append(s)
+    dec = by_name["mjt.stream.decode"]
+    ext = by_name["mjt.stream.surgical_extract"]
+    assert len(dec) == len(ext) == 3
+    for d, e in zip(dec, ext):
+        assert e.parent == "mjt.stream.decode" and e.thread == d.thread
+        assert e.ids == d.ids
+        assert d.start <= e.start <= e.end <= d.end
+    st = bc.last_stream_stats
+    assert st["surgical_extract_s"] == pytest.approx(
+        sum(e.end - e.start for e in ext))
+    enc = {(s.ids["batch"], s.ids["file"]): s
+           for s in by_name["mjt.stream.encode"]}
+    first = {}
+    for (b, f), s in enc.items():
+        first[b] = min(first.get(b, s.start), s.start)
+    re = by_name["mjt.stream.surgical_reencode"]
+    assert sorted((s.ids["batch"], s.ids["file"]) for s in re) == \
+        sorted(enc)
+    for s in re:
+        own = enc[(s.ids["batch"], s.ids["file"])]
+        assert s.ids["stream"] == own.ids["stream"]
+        assert first[s.ids["batch"]] <= s.start <= s.end <= own.end
 
 
 def test_stream_spans_carry_ids(data, dropon):
