@@ -1109,9 +1109,9 @@ def _bj_compose_breakdown(img, dropon):
                 for c, (r0, c0, h, w) in enumerate(origins)]]
     quants = [[img.quant_table_for(c) for c in range(len(origins))]]
     log(f"betterjpeg compose, replayed: footprint {bc._meta} blocks per "
-        f"component; compile_dropon {t_compile:.3f} s (of which host "
-        f"mask_pix_np {t_mask:.3f} s when run alone), BatchComposer setup "
-        f"{t_setup:.3f} s")
+        f"component; compile_dropon {t_compile:.3f} s (masks on the card; "
+        f"the host mask_pix_np of its weights alone {t_mask:.3f} s), "
+        f"BatchComposer setup {t_setup:.3f} s")
 
     flat = np.concatenate([np.asarray(r, np.int16).reshape(1, -1)
                            for r in regions[0]], axis=1)

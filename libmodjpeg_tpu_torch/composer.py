@@ -3,13 +3,16 @@ libmodjpeg_tpu.composer).
 
 Placement mirrors compose.c:57-172 with its edge-case quirks; the dropon
 compilation (dropon.c:325-428) runs color convert -> box subsample ->
-batched FDCT -> round on ``device`` and returns the host CompiledDropon
-model (model.py, the port's copy of the JAX package's).
+batched FDCT -> round -> pixel-domain mask on ``device`` and leaves the
+result there (``compile_dropon_device``), or copies it down once as the
+host CompiledDropon model (``compile_dropon``; model.py, the port's copy
+of the JAX package's).
 """
 
 from __future__ import annotations
 
 import dataclasses
+import functools
 
 import numpy as np
 import torch
@@ -17,9 +20,10 @@ import torch
 from . import constants as C
 from .errors import NullDataError, UnsupportedColorspaceError
 from .model import CoefImage, CompiledDropon, Dropon
+from .state import DeviceDropon
 
 from .ops import dct as dctops
-from .ops.compose import mask_pix_np
+from .ops.compose import mask_pix
 
 
 @dataclasses.dataclass
@@ -94,6 +98,12 @@ _ALPHA_FACTORS[:, 0] = 0.5 * 0.3535534 / 1020.0
 _ALPHA_FACTORS[0, 0] = 0.3535534 * 0.3535534 / 1020.0
 
 
+@functools.lru_cache(maxsize=None)
+def _alpha_factors_on(device: torch.device) -> torch.Tensor:
+    """_ALPHA_FACTORS on ``device``, made once per device."""
+    return torch.from_numpy(_ALPHA_FACTORS).to(device)
+
+
 def _plane_to_dct_blocks(plane: torch.Tensor, fh: int,
                          fv: int) -> torch.Tensor:
     """[H, W] float plane -> rounded Q100 DCT blocks [H/8fv, W/8fh, 8, 8]
@@ -107,7 +117,7 @@ def _alpha_to_weights(plane: torch.Tensor, fh: int, fv: int) -> torch.Tensor:
     Q100 DCT, DC+1024 level-shift undo, scale by c(i)c(j)/1020."""
     d = _plane_to_dct_blocks(plane, fh, fv).clone()
     d[..., 0, 0] += 1024.0
-    return d * torch.from_numpy(_ALPHA_FACTORS).to(d.device)
+    return d * _alpha_factors_on(d.device)
 
 
 def _convert_canvas(cf: torch.Tensor, src_cs: int, jpeg_cs: int) -> list:
@@ -153,15 +163,45 @@ def _convert_canvas(cf: torch.Tensor, src_cs: int, jpeg_cs: int) -> list:
     raise UnsupportedColorspaceError(f"jpeg colorspace {jpeg_cs}")
 
 
-def compile_dropon(d: Dropon, img: CoefImage, blockoffset_x: int,
+def _dropon_canvas(d: Dropon, width: int, height: int, blockoffset_x: int,
                    blockoffset_y: int, crop_x: int, crop_y: int, crop_w: int,
-                   crop_h: int, device="cuda") -> CompiledDropon:
-    """mj_compile_dropon (dropon.c:325-428), computed on ``device``.
+                   crop_h: int, device: torch.device) -> tuple:
+    """The cropped dropon's image and alpha, each padded by the block
+    offsets (top-left) and up to ``width`` x ``height`` (bottom-right) with
+    zeros: two float32 [height, width, 3] tensors on ``device``.
+
+    Both go up in one [2, height, width, 3] copy, in uint8 when the
+    dropon's pixels are, from page-locked memory on a CUDA device, so the
+    copy queues on the stream without waiting for it."""
+    dtype = (torch.uint8 if d.image.dtype == np.uint8
+             and d.alpha.dtype == np.uint8 else torch.float32)
+    canvas = torch.zeros((2, height, width, 3), dtype=dtype,
+                         pin_memory=device.type == "cuda")
+    host = canvas.numpy()
+    for k, src in enumerate((d.image, d.alpha)):
+        host[k, blockoffset_y:blockoffset_y + crop_h,
+             blockoffset_x:blockoffset_x + crop_w] = \
+            src[crop_y:crop_y + crop_h, crop_x:crop_x + crop_w]
+    up = canvas.to(device, non_blocking=True).float()
+    return up[0], up[1]
+
+
+def compile_dropon_device(d: Dropon, img: CoefImage, blockoffset_x: int,
+                          blockoffset_y: int, crop_x: int, crop_y: int,
+                          crop_w: int, crop_h: int,
+                          device="cuda") -> DeviceDropon:
+    """mj_compile_dropon (dropon.c:325-428) on ``device``, left there: the
+    DeviceDropon the compose reads, with the alpha weights.
 
     Pads the cropped dropon by the block offsets (top-left) and up to the MCU
     multiple (bottom-right) with zeros — zero alpha means those pixels leave
-    the image untouched, which is how sub-MCU placement is realized.
+    the image untouched, which is how sub-MCU placement is realized.  Colour
+    convert, box subsample, FDCT and round, then the pixel-domain masks as
+    one float64 product (ops.compose.mask_pix).  Nothing comes back to the
+    host and nothing waits for the stream: on a CUDA device the work queues
+    behind what is already there.
     """
+    device = torch.device(device)
     h_factor = img.sampling.h_factor
     v_factor = img.sampling.v_factor
     width = crop_w + blockoffset_x
@@ -171,42 +211,56 @@ def compile_dropon(d: Dropon, img: CoefImage, blockoffset_x: int,
     if height % v_factor:
         height += v_factor - (height % v_factor)
 
-    img_canvas = np.zeros((height, width, 3), dtype=np.float32)
-    img_canvas[blockoffset_y:blockoffset_y + crop_h,
-               blockoffset_x:blockoffset_x + crop_w] = \
-        d.image[crop_y:crop_y + crop_h, crop_x:crop_x + crop_w]
-    alpha_canvas = np.zeros((height, width, 3), dtype=np.float32)
-    alpha_canvas[blockoffset_y:blockoffset_y + crop_h,
-                 blockoffset_x:blockoffset_x + crop_w] = \
-        d.alpha[crop_y:crop_y + crop_h, crop_x:crop_x + crop_w]
-
-    jcs = img.jpeg_color_space
-    planes = _convert_canvas(torch.from_numpy(img_canvas).to(device),
-                             d.colorspace, jcs)
-    alpha_dev = torch.from_numpy(alpha_canvas).to(device)
+    image, alpha = _dropon_canvas(d, width, height, blockoffset_x,
+                                  blockoffset_y, crop_x, crop_y, crop_w,
+                                  crop_h, device)
+    planes = _convert_canvas(image, d.colorspace, img.jpeg_color_space)
 
     max_h, max_v = img.sampling.max_h_samp, img.sampling.max_v_samp
     # 12-bit target frames: an 8-bit dropon sample p maps to the 12-bit
     # sample p<<4, so the dropon's DCT scales linearly by 16 (the alpha
     # weights are a 0..1 blend fraction and stay precision-independent)
     scale = float(1 << (getattr(img, "precision", 8) - 8))
-    image_blocks, alpha_weights, samp = [], [], []
+    drops, weights, masks, shapes = [], [], [], []
     for c in range(len(planes)):
         ci = img.components[c]
         fh, fv = max_h // ci.h_samp, max_v // ci.v_samp
-        blocks = np.ascontiguousarray(
-            _plane_to_dct_blocks(planes[c], fh, fv).cpu())
-        image_blocks.append(blocks * scale if scale != 1.0 else blocks)
+        blocks = _plane_to_dct_blocks(planes[c], fh, fv)
+        if scale != 1.0:
+            blocks = blocks * scale
         # alpha: no color transform (dropon.c:402-415); the three alpha
         # channels are identical, so each component subsamples one plane
-        aplane = alpha_dev[..., min(c, 2)]
-        alpha_weights.append(np.ascontiguousarray(
-            _alpha_to_weights(aplane, fh, fv).cpu()))
-        samp.append((ci.h_samp, ci.v_samp))
+        w = _alpha_to_weights(alpha[..., min(c, 2)], fh, fv)
+        shapes.append(tuple(blocks.shape[:2]))
+        drops.append(blocks.reshape(-1, 64).contiguous())
+        weights.append(w.reshape(-1, 64).contiguous())
+        masks.append(mask_pix(weights[-1]))
+    return DeviceDropon(drops=tuple(drops), masks=tuple(masks),
+                        shapes=tuple(shapes), weights=tuple(weights))
 
-    return CompiledDropon(image_colorspace=jcs, image_blocks=image_blocks,
-                          alpha_weights=alpha_weights, samp_factors=samp,
-                          mask_pixels=[mask_pix_np(w) for w in alpha_weights])
+
+def compile_dropon(d: Dropon, img: CoefImage, blockoffset_x: int,
+                   blockoffset_y: int, crop_x: int, crop_y: int, crop_w: int,
+                   crop_h: int, device="cuda") -> CompiledDropon:
+    """mj_compile_dropon (dropon.c:325-428) as the host CompiledDropon
+    model: compile_dropon_device on ``device`` and one copy of its drops,
+    alpha weights and masks down to the host."""
+    dd = compile_dropon_device(d, img, blockoffset_x, blockoffset_y, crop_x,
+                               crop_y, crop_w, crop_h, device=device)
+    flat = torch.cat(dd.drops + dd.weights + dd.masks).cpu().numpy()
+    counts = [h * w for h, w in dd.shapes] * 3
+    parts = np.split(flat, np.cumsum(counts)[:-1])
+    n = len(dd.shapes)
+
+    def blocks(k):       # the k-th of drops, weights, masks, per component
+        return [parts[k * n + c].reshape(h, w, 8, 8)
+                for c, (h, w) in enumerate(dd.shapes)]
+
+    return CompiledDropon(
+        image_colorspace=img.jpeg_color_space, image_blocks=blocks(0),
+        alpha_weights=blocks(1),
+        samp_factors=[(ci.h_samp, ci.v_samp) for ci in img.components[:n]],
+        mask_pixels=blocks(2))
 
 
 def compose(img: CoefImage, d: Dropon, align: int = 0, offset_x: int = 0,

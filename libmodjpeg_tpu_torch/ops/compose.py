@@ -28,15 +28,21 @@ SQRT2 = float(np.sqrt(2.0))
 
 
 @functools.lru_cache(maxsize=1)
-def _dct_kron() -> np.ndarray:
+def _dct_kron64() -> np.ndarray:
     """U = C (x) C, the orthonormal 2-D DCT-II operator on row-major
-    flattened 8x8 blocks, float32 [64, 64] (built in float64)."""
+    flattened 8x8 blocks, float64 [64, 64]."""
     C = np.zeros((8, 8), dtype=np.float64)
     for i in range(8):
         for j in range(8):
             c = np.sqrt(1 / 8) if i == 0 else np.sqrt(2 / 8)
             C[i, j] = c * np.cos((2 * j + 1) * i * np.pi / 16)
-    return np.kron(C, C).astype(np.float32)
+    return np.kron(C, C)
+
+
+@functools.lru_cache(maxsize=1)
+def _dct_kron() -> np.ndarray:
+    """_dct_kron64() as float32 [64, 64]."""
+    return _dct_kron64().astype(np.float32)
 
 
 # mask-DCT weight -> pixel-mask scale: diagonal m = C^T (w * g) C where
@@ -56,6 +62,25 @@ def mask_pix_np(w_alpha: np.ndarray) -> np.ndarray:
     wg = np.asarray(w_alpha, np.float64) * _MASK_GAIN
     m = np.einsum("ki,...kl,lj->...ij", C, wg, C)
     return np.ascontiguousarray(m, np.float32)
+
+
+@functools.lru_cache(maxsize=None)
+def _mask_operator_on(device: torch.device) -> tuple:
+    """(gain, U): _MASK_GAIN flattened to [64] and _dct_kron64(), float64
+    tensors on ``device``, made once per device."""
+    return (torch.from_numpy(_MASK_GAIN.reshape(64)).to(device),
+            torch.from_numpy(_dct_kron64()).to(device))
+
+
+def mask_pix(w_alpha: torch.Tensor) -> torch.Tensor:
+    """mask_pix_np where ``w_alpha`` lies: normalized mask-DCT weights
+    float32 [N, 64] -> the pixel-domain masks float32 [N, 64], as one
+    float64 product (w * g) @ (C (x) C) on the weights' device, cast to
+    float32.  Equal to mask_pix_np of the same weights but where the two
+    float64 sums, taken in another order, round to neighbouring float32
+    values."""
+    gain, u = _mask_operator_on(w_alpha.device)
+    return ((w_alpha.to(torch.float64) * gain) @ u).to(torch.float32)
 
 
 @functools.lru_cache(maxsize=None)

@@ -29,6 +29,13 @@ def _t32() -> np.ndarray:
     return dct_matrix_np().astype(np.float32)
 
 
+@functools.lru_cache(maxsize=None)
+def _t32_on(device: torch.device) -> torch.Tensor:
+    """_t32() on ``device``, made once per device (nobody writes to it): a
+    copy to the card on every call would synchronise the stream."""
+    return torch.from_numpy(_t32()).to(device)
+
+
 def fdct_blocks(pixels: torch.Tensor, center: float = 128.0) -> torch.Tensor:
     """Forward DCT of level-shifted pixel blocks.
 
@@ -37,7 +44,7 @@ def fdct_blocks(pixels: torch.Tensor, center: float = 128.0) -> torch.Tensor:
     JPEG-scale coefficients.
     """
     x = pixels - center
-    T = torch.from_numpy(_t32()).to(pixels.device)
+    T = _t32_on(pixels.device)
     return torch.einsum("ux,...xy,vy->...uv", T, x, T)
 
 

@@ -131,29 +131,37 @@ def _compiled_footprints(img: CoefImage, dropon, align: int, offset_x: int,
                          offset_y: int, device, compiled=None):
     """Placement and compile of a dropon against ``img`` on ``device``.
 
-    Returns None when the placement is a no-op, else per component
-    (row0, col0, dropon, mask_pix), the last two [h, w, 8, 8] float32 on
-    ``device``.  ``compiled``: a ready CompiledDropon (a JAX-package one
-    carried over by state.from_reference) to use instead of compiling.
+    Returns (footprints, host_bytes).  ``footprints`` is None when the
+    placement is a no-op, else per component (row0, col0, dropon,
+    mask_pix), the last two [h, w, 8, 8] float32 on ``device``, compiled
+    there (composer.compile_dropon_device).  ``compiled``: a ready
+    CompiledDropon (a JAX-package one carried over by
+    state.from_reference) to use instead, copied up from the host.
+    ``host_bytes``: the bytes of the compiled dropon that passed through
+    host memory, 0 when it was compiled on ``device``.
     """
-    from ..composer import compile_dropon, plan_placement
+    from ..composer import compile_dropon_device, plan_placement
     from ..state import compiled_dropon_to_torch
 
     p = plan_placement(img, dropon, align, offset_x, offset_y)
     if p.noop:
-        return None
+        return None, 0
     if compiled is None:
-        compiled = compile_dropon(dropon, img, p.blockoffset_x,
-                                  p.blockoffset_y, p.crop_x, p.crop_y,
-                                  p.crop_w, p.crop_h, device=device)
-    dd = compiled_dropon_to_torch(compiled, device)
+        dd = compile_dropon_device(dropon, img, p.blockoffset_x,
+                                   p.blockoffset_y, p.crop_x, p.crop_y,
+                                   p.crop_w, p.crop_h, device=device)
+        host_bytes = 0
+    else:
+        dd = compiled_dropon_to_torch(compiled, device)
+        host_bytes = sum(t.numel() * t.element_size()
+                         for t in dd.drops + dd.masks)
     out = []
     for c, (h, w) in enumerate(dd.shapes):
         ci = img.components[c]
         out.append((p.block_y * ci.v_samp, p.block_x * ci.h_samp,
                     dd.drops[c].reshape(h, w, 8, 8),
                     dd.masks[c].reshape(h, w, 8, 8)))
-    return out
+    return out, host_bytes
 
 
 def compose_sharded(img: CoefImage, dropon, align: int, offset_x: int,
@@ -161,12 +169,13 @@ def compose_sharded(img: CoefImage, dropon, align: int, offset_x: int,
                     compiled=None) -> CoefImage:
     """Compose onto a grid split over the whole mesh.  The overlay may span
     slab borders: its rows are gathered to the mesh's first device,
-    composed there and written back (_compose_rows).  ``compiled``: a ready
-    CompiledDropon to use instead of compiling one."""
+    composed there and written back (_compose_rows).  The dropon is
+    compiled on that device; ``compiled``: a ready CompiledDropon to use
+    instead of compiling one."""
     out = img.copy()
     dev = mesh.device_list[0]
-    fps = _compiled_footprints(img, dropon, align, offset_x, offset_y, dev,
-                               compiled)
+    fps, _ = _compiled_footprints(img, dropon, align, offset_x, offset_y,
+                                  dev, compiled)
     for c, (row0, col0, drop, mask) in enumerate(fps or ()):
         grid = _shard_grid(mesh, out.coefs[c])
         _compose_rows(grid, drop, mask, out.quant_table_for(c), row0, col0)

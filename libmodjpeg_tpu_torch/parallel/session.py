@@ -9,8 +9,9 @@ Huffman-optimize statistics are computed from the resident grids.
 While tracing is on (``tracing``) each step is a span with the session's
 id: ``mjt.grid.effect`` and ``mjt.grid.compose`` are device spans on the
 session's first device, ``mjt.grid.compile`` (the logo's placement and
-compile), ``mjt.grid.to_image`` (with the byte counts of
-``last_to_image``) and ``mjt.grid.encode`` host spans.
+compile, with the counts of ``last_compile``), ``mjt.grid.to_image``
+(with the byte counts of ``last_to_image``) and ``mjt.grid.encode`` host
+spans.
 """
 
 from __future__ import annotations
@@ -60,6 +61,7 @@ class GridSession:
         self.mesh = mesh
         self._ids = {"session": next(_SESSIONS)}
         self.last_to_image: Optional[dict] = None
+        self.last_compile: Optional[dict] = None
         if mesh is None:
             self.device = _require_device(torch.device(device))
             # one slab: the whole grid on the device, no padding
@@ -88,14 +90,28 @@ class GridSession:
 
     def compose(self, dropon: Dropon, align: int = 0, offset_x: int = 0,
                 offset_y: int = 0, *, compiled=None) -> "GridSession":
-        """Compose in place on the resident grids.  The footprint is
-        composed on the session's first device (the kernel on a CUDA
-        device).  ``compiled``: a ready CompiledDropon (a JAX-package one
-        carried over by state.from_reference) to use instead of compiling
-        one."""
-        with tracing.span("mjt.grid.compile", **self._ids):
-            fps = _compiled_footprints(self.meta, dropon, align, offset_x,
-                                       offset_y, self.device, compiled)
+        """Compose in place on the resident grids.  The dropon is compiled
+        and the footprint composed on the session's first device (the
+        kernel on a CUDA device); the compile's results stay there.
+        ``compiled``: a ready CompiledDropon (a JAX-package one carried
+        over by state.from_reference) to use instead of compiling one.
+
+        ``last_compile`` counts the call: ``blocks`` compiled over all
+        components (0 for a no-op placement) and ``host_bytes`` of the
+        compiled dropon that passed through host memory (0 when compiled
+        here, the drops and masks copied up from ``compiled`` otherwise);
+        while tracing is on the ``mjt.grid.compile`` span carries both as
+        ids."""
+        with tracing.span("mjt.grid.compile", **self._ids) as sp:
+            fps, host_bytes = _compiled_footprints(
+                self.meta, dropon, align, offset_x, offset_y, self.device,
+                compiled)
+            self.last_compile = {
+                "blocks": sum(d.shape[0] * d.shape[1]
+                              for _, _, d, _ in fps or ()),
+                "host_bytes": host_bytes}
+            if sp is not None:
+                sp.ids.update(self.last_compile)
         with tracing.device_span("mjt.grid.compose", self.device,
                                  **self._ids):
             for c, (row0, col0, drop, mask) in enumerate(fps or ()):

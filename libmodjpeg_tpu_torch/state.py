@@ -55,11 +55,15 @@ def from_reference(obj):
 class DeviceDropon:
     """Per component c: ``drops[c]`` the dropon's DCT coefficients and
     ``masks[c]`` the pixel-domain mask, both float32 [h_c * w_c, 64] on the
-    device; ``shapes[c]`` = (h_c, w_c) in blocks."""
+    device; ``shapes[c]`` = (h_c, w_c) in blocks; ``weights[c]`` the alpha
+    weights in the same form where the dropon was compiled on the device
+    (composer.compile_dropon_device), empty when it came from a host
+    CompiledDropon."""
 
     drops: tuple
     masks: tuple
     shapes: tuple
+    weights: tuple = ()
 
     @property
     def meta(self) -> tuple:

@@ -479,3 +479,89 @@ def test_bench_kernel_roofline_on_card(cuda):
     assert r["bytes"] == 100_663_552 == bench.ROOF_BLOCKS * 768 + 256
     assert 0 < r["frac"] <= 1.05
     assert r["peak_gbps"] > 0 and r["published_peak_gbps"] == 3350.0
+
+
+def _fx100mp_logo_frame():
+    """fx100mp's logo (the benchmark's make_logo: noise colours, opaque
+    core, an 11-pixel soft border; 1024x256 RGBA) and the header of its
+    12240x8160 4:2:0 frame, with no coefficient planes."""
+    import libmodjpeg_tpu_torch as mt
+    from libmodjpeg_tpu_torch.model import CoefImage, ComponentInfo, Sampling
+
+    w, h, width, height = 1024, 256, 12240, 8160
+    px = np.random.default_rng(5).integers(0, 255, (h, w, 4), dtype=np.uint8)
+    yy, xx = np.mgrid[0:h, 0:w]
+    edge = np.minimum.reduce([xx, yy, w - 1 - xx, h - 1 - yy])
+    px[..., 3] = np.clip(edge.astype(np.float32) * 24, 0, 255)
+    comps = [ComponentInfo(c + 1, hs, vs, int(c > 0), width * hs // 16,
+                           height * vs // 16, width * hs // 16,
+                           height * vs // 16)
+             for c, (hs, vs) in enumerate([(2, 2), (1, 1), (1, 1)])]
+    frame = CoefImage(width=width, height=height, jpeg_color_space=3,
+                      components=comps, coefs=[], quant_tables={},
+                      sampling=Sampling(2, 2))
+    return mt.read_dropon_from_raw(px, mt.COLORSPACE_RGBA, w, h), frame
+
+
+def _ulps(a, b):
+    """Distance in float32 steps between two float32 arrays."""
+    def line(x):         # the bit patterns on one increasing integer line
+        i = x.view(np.int32).astype(np.int64)
+        return np.where(i < 0, -(2 ** 31) - i, i)
+    return np.abs(line(a) - line(b))
+
+
+def test_device_compile_masks_on_card(cuda):
+    """The float64 mask product on the card against mask_pix_np of the same
+    weights, at fx100mp's logo and centred placement: at most one float32
+    step apart; the count that differ is printed."""
+    import libmodjpeg_tpu_torch as mt
+    from libmodjpeg_tpu_torch import composer
+    from libmodjpeg_tpu_torch.ops.compose import mask_pix_np
+
+    logo, frame = _fx100mp_logo_frame()
+    p = composer.plan_placement(frame, logo, mt.ALIGN_CENTER, 0, 0)
+    dd = composer.compile_dropon_device(
+        logo, frame, p.blockoffset_x, p.blockoffset_y, p.crop_x, p.crop_y,
+        p.crop_w, p.crop_h, device=cuda)
+    assert all(t.device.type == "cuda" for t in dd.drops + dd.masks)
+    assert sum(h * w for h, w in dd.shapes) == 6240
+    differ = total = worst = 0
+    for w, m in zip(dd.weights, dd.masks):
+        want = mask_pix_np(w.cpu().numpy().reshape(-1, 8, 8)).reshape(-1, 64)
+        d = _ulps(m.cpu().numpy(), want)
+        differ += int((d != 0).sum())
+        total += d.size
+        worst = max(worst, int(d.max()))
+    print(f"card masks differing from mask_pix_np: {differ} of {total}, "
+          f"at most {worst} float32 step(s)")
+    assert worst <= 1
+
+
+def test_grid_device_compile_on_card(cuda):
+    """On the card, GridSession.compose compiles the logo there
+    (last_compile host_bytes 0) and its planes equal those of the same
+    chain given compile_dropon's host model."""
+    import libmodjpeg_tpu_torch as mt
+    from libmodjpeg_tpu_torch import composer
+    from libmodjpeg_tpu_torch.parallel import GridSession
+
+    img = _random_420(13, 40, 27)
+    logo = _fixture_logo()
+    place = (mt.ALIGN_CENTER, 5, -3)
+    p = composer.plan_placement(img, logo, *place)
+    cd = composer.compile_dropon(logo, img, p.blockoffset_x, p.blockoffset_y,
+                                 p.crop_x, p.crop_y, p.crop_w, p.crop_h,
+                                 device=cuda)
+    blocks = sum(b.shape[0] * b.shape[1] for b in cd.image_blocks)
+    outs = {}
+    for kw, host in (({}, 0), ({"compiled": cd}, sum(
+            a.nbytes for a in cd.image_blocks + cd.mask_pixels))):
+        s = GridSession(img, device=cuda)
+        s.effect("luminance", value=60).effect("tint", cb_value=25)
+        s.compose(logo, *place, **kw)
+        assert s.last_compile == {"blocks": blocks, "host_bytes": host}
+        outs[host] = s.effect("pixelate").to_image()
+    a, b = outs.values()
+    for x, y in zip(a.coefs, b.coefs):
+        np.testing.assert_array_equal(x, y)

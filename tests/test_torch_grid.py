@@ -272,3 +272,61 @@ def test_grid_session_cuda_without_card_raises(base):
         pytest.skip("a CUDA device is present")
     with pytest.raises(RuntimeError):
         GridSession(base, device="cuda")
+
+
+def _host_model(img, logo, align, ox, oy):
+    """compile_dropon's host CompiledDropon for a placement."""
+    from libmodjpeg_tpu_torch import composer
+
+    p = composer.plan_placement(img, logo, align, ox, oy)
+    return composer.compile_dropon(logo, img, p.blockoffset_x,
+                                   p.blockoffset_y, p.crop_x, p.crop_y,
+                                   p.crop_w, p.crop_h, device="cpu")
+
+
+@pytest.mark.parametrize("mesh", [None, (2, 4), (1, 8)],
+                         ids=["one-device", "mesh2x4", "mesh1x8"])
+def test_grid_compose_device_compile_equals_host_model(base, logo, mesh):
+    """GridSession.compose compiles the logo where it composes: the planes
+    equal those of the same chain given compile_dropon's host model, and
+    last_compile and the compile span count the blocks and the bytes that
+    passed through the host (none without ``compiled``)."""
+    img, d = from_reference(base), from_reference(logo)
+    cd = _host_model(img, d, mj.ALIGN_CENTER, -9, 4)
+    blocks = sum(b.shape[0] * b.shape[1] for b in cd.image_blocks)
+    nbytes = sum(a.size * 4 for a in cd.image_blocks + cd.mask_pixels)
+    got = {}
+    for kw, host in (({}, 0), ({"compiled": cd}, nbytes)):
+        sess = GridSession(img, None if mesh is None else _mesh(*mesh),
+                           device="cpu")
+        with tracing.recording():
+            got[host] = _chain(sess, d, **kw)
+        assert sess.last_compile == {"blocks": blocks, "host_bytes": host}
+        sp = [s for s in tracing.spans()[0] if s.name == "mjt.grid.compile"
+              and s.ids["session"] == sess._ids["session"]]
+        assert len(sp) == 1
+        assert sp[0].ids == {**sess._ids, **sess.last_compile}
+    _assert_same(got[0], got[nbytes])
+
+
+def test_grid_compose_noop_placement_compiles_nothing(base, logo):
+    """An overlay placed outside the frame compiles nothing and leaves the
+    grids as they were."""
+    sess = GridSession(from_reference(base), device="cpu")
+    sess.compose(from_reference(logo), mj.ALIGN_TOP | mj.ALIGN_LEFT, 4000, 0)
+    assert sess.last_compile == {"blocks": 0, "host_bytes": 0}
+    _assert_same(sess.to_image(), base)
+
+
+@pytest.mark.parametrize("mesh", [(1, 8), (2, 4)], ids=["mesh1x8",
+                                                       "mesh2x4"])
+def test_compose_sharded_device_compile_equals_host_model(base, logo, mesh):
+    """compose_sharded compiles on the mesh's first device: equal to the
+    same compose given compile_dropon's host model, on a placement whose
+    rows cross slab borders."""
+    img, d = from_reference(base), from_reference(logo)
+    place = (mj.ALIGN_CENTER, 3, -7)
+    m = _mesh(*mesh)
+    _assert_same(compose_sharded(img, d, *place, m),
+                 compose_sharded(img, d, *place, m,
+                                 compiled=_host_model(img, d, *place)))
