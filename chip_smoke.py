@@ -63,8 +63,11 @@ Phases, each of which raises on failure:
    (dropon only), a resume run that skips all 32, and the effects route
    (luminance + dropon).  Checks 0 failures, card outputs against CPU
    outputs (identical outside the footprint, +-1 on under 0.5% inside,
-   byte-identical wherever the coefficients are); then compose_batch on 8
-   of the images against 8 single compose calls on the card (identical);
+   byte-identical wherever the coefficients are); then the corpus CLI as
+   two host processes sharing the card (--hosts 2, --host-id 0 and 1):
+   their joined outputs byte-identical to the one-host stream run, and
+   compose launches in each; then compose_batch on 8 of the images
+   against 8 single compose calls on the card (identical);
 9. the betterjpeg script (libmodjpeg_tpu_torch.scripts.betterjpeg) on a
    6000x4000 4:2:0 q92 photo and an edited PNG of it (a noise patch, a
    flat redaction box, a thin white diagonal across the frame), so the
@@ -75,17 +78,7 @@ Phases, each of which raises on failure:
    +-1 on under 0.5% inside, and a no-change run that launches nothing and
    keeps every coefficient; then replays the compose step piece by piece
    (wire taken, downlink rows refetched, device time per step) and holds
-   its Y launch (375,000 blocks) against its plain version on the card;
-10. the port's bench (libmodjpeg_tpu_torch.scripts.bench) at its defaults:
-   32 1080p files, 5 interleaved windows of 5 passes per stream lane, the
-   codec lanes, stages, the surgical stages, grid effects on a 100.7 MP
-   GridSession and kernel_roofline against the card's measured copy rate.
-   Checks its asserted paths (it raises on a wrong one), 5 windows per
-   stream lane, 0 < kernel_roofline.frac <= 1.05, grid_effects, the card's
-   power limit and that it launched the kernel; then the scaling bench
-   (scripts.scaling_bench, 8 images, two corpus processes sharing the
-   card): byte-identical outputs across fan-out and kernel launches in the
-   two-host run.  Both print their JSON lines.
+   its Y launch (375,000 blocks) against its plain version on the card.
 
 Prints the card's name and power limit, then one JSON line describing the
 kernels (times, bounds, launches per path), and as the last line
@@ -129,7 +122,6 @@ BIG_MP = 100.0        # tests/test_bigimage.py with MJT_BIG=1
 BIG_RESTART = 64
 EFFECT_ROUNDS = 6     # bench.py grid_effects: KG
 N_COMPOSE_BATCH = 8
-SCALING_IMAGES = 8
 BJ_W, BJ_H = 6000, 4000   # a 24 MP photo
 BJ_QUALITY = 92
 FIXTURES = os.path.join(REPO, "tests", "fixtures")
@@ -482,7 +474,7 @@ def _check_footprint(origins, inputs, outputs, cpu_outputs, label):
 
 def phase_main_path(pool):
     import libmodjpeg_tpu_torch as mt
-    from libmodjpeg_tpu_torch import codec
+    from libmodjpeg_tpu_torch import codec, composer
     from libmodjpeg_tpu_torch.encode_pixels import from_pixels
     from libmodjpeg_tpu_torch.ops import compose_kernel as ck
     from libmodjpeg_tpu_torch.parallel import BatchComposer
@@ -547,17 +539,22 @@ def phase_main_path(pool):
         raise AssertionError("splice bytes differ from full-path bytes")
     log("splice bytes == full-path bytes for all files")
 
+    tmpl = codec.decode(free[0])
+    p = composer.plan_placement(tmpl, dropon, *place)
+    cd = composer.compile_dropon(dropon, tmpl, p.blockoffset_x,
+                                 p.blockoffset_y, p.crop_x, p.crop_y,
+                                 p.crop_w, p.crop_h, device="cuda")
     for name in ("splice", "surgical"):
         datas, kw = runs[name]
         bc = composers[name]
         cpu_bc = BatchComposer(codec.decode(datas[0]), dropon, *place,
-                               device="cpu", compiled=bc.cd)
+                               device="cpu", compiled=cd)
         cpu_out = list(cpu_bc.watermark_stream(iter(datas), batch=BATCH,
                                                pool=pool, **kw))
         if cpu_bc.last_stream_path != name:
             raise AssertionError(f"cpu {name} run took "
                                  f"{cpu_bc.last_stream_path}")
-        _check_footprint(bc._region_origins(), datas, results[name], cpu_out,
+        _check_footprint(bc._origins, datas, results[name], cpu_out,
                          name)
     step = _stream_step(composers["splice"], free)
     return total_launches, free, step
@@ -576,9 +573,9 @@ def _stream_step(bc, datas):
     imgs = [codec.decode(d) for d in datas[:BATCH]]
     n, meta, dd = len(imgs), bc._meta, bc._dev
     flat = np.concatenate(
-        [np.stack([im.coefs[c][r0:r0 + h, c0:c0 + w] for im in imgs])
-         .reshape(n, -1)
-         for c, (r0, c0, h, w) in enumerate(bc._region_origins())], axis=1)
+        [np.stack(r).reshape(n, -1)
+         for r in zip(*(tbatch._footprint(im, bc._origins) for im in imgs))],
+        axis=1)
     qstack = np.concatenate(
         [np.stack([np.asarray(im.quant_table_for(c), np.int32).reshape(64)
                    for im in imgs]) for c in range(len(meta))], axis=1)
@@ -656,19 +653,14 @@ def _cli_footprints(src):
     cover."""
     import libmodjpeg_tpu_torch as mt
     from libmodjpeg_tpu_torch import codec
-    from libmodjpeg_tpu_torch.parallel import BatchComposer
 
     img = codec.decode(open(src, "rb").read())
-    masks = [np.zeros(c.shape[:2], bool) for c in img.coefs]
-    for dropon, mask, align in (
-            ("dropon.jpg", "mask.jpg", mt.ALIGN_BOTTOM | mt.ALIGN_RIGHT),
-            ("dropon.png", None, mt.ALIGN_TOP | mt.ALIGN_LEFT)):
-        d = mt.read_dropon(f"{FIXTURES}/{dropon}",
-                           mask=mask and f"{FIXTURES}/{mask}", device="cpu")
-        bc = BatchComposer(img, d, align, -32, -32, device="cpu")
-        for c, (r0, c0, h, w) in enumerate(bc._region_origins()):
-            masks[c][r0:r0 + h, c0:c0 + w] = True
-    return masks
+    jpg = mt.read_dropon(f"{FIXTURES}/dropon.jpg",
+                         mask=f"{FIXTURES}/mask.jpg", device="cpu")
+    png = mt.read_dropon(f"{FIXTURES}/dropon.png", device="cpu")
+    return [a | b for a, b in zip(
+        _footprint_masks(img, jpg, mt.ALIGN_BOTTOM | mt.ALIGN_RIGHT, -32, -32),
+        _footprint_masks(img, png, mt.ALIGN_TOP | mt.ALIGN_LEFT, -32, -32))]
 
 
 def _share_within_one(a, b, label):
@@ -822,7 +814,7 @@ def _footprint_masks(img, logo, align, ox, oy):
 
     bc = BatchComposer(img, logo, align, ox, oy, device="cpu")
     masks = [np.zeros(c.shape[:2], bool) for c in img.coefs]
-    for c, (r0, c0, h, w) in enumerate(bc._region_origins()):
+    for c, (r0, c0, h, w) in enumerate(bc._origins):
         masks[c][r0:r0 + h, c0:c0 + w] = True
     return masks
 
@@ -943,6 +935,52 @@ def _compare_outputs(card, cpu, inside, label):
         f"{same} of {len(card)} files byte-identical")
 
 
+# a corpus host process: the CLI on the card, then its compose launches on a
+# line of their own after the runner's summary line
+_CORPUS_HOST = """
+import json, sys
+from libmodjpeg_tpu_torch import corpus
+from libmodjpeg_tpu_torch.ops import compose_kernel
+rc = corpus.main(sys.argv[1:])
+print(json.dumps({"compose_launches": compose_kernel.launches}))
+sys.exit(rc)
+"""
+
+
+def _corpus_two_hosts(src, png, one_host):
+    """The corpus CLI as two host processes sharing the card (--hosts 2,
+    --host-id 0 and 1: disjoint shards of ``src``); their joined outputs
+    must be the one-host run's bytes ``one_host``.  Returns their compose
+    launches."""
+    out = os.path.join(WORK, "corpus_hosts")
+    argv = [sys.executable, "-c", _CORPUS_HOST, "--inputs", src, "--out", out,
+            "--dropon", png, "--position", "br",
+            "--offset={},{}".format(*PLACE_OFFSET), "--batch", str(BATCH),
+            "--hosts", "2", "--host-id"]
+    procs = [subprocess.Popen(argv + [str(i)], cwd=REPO, text=True,
+                              stdout=subprocess.PIPE, stderr=subprocess.PIPE)
+             for i in range(2)]
+    launches = []
+    for i, p in enumerate(procs):
+        o, e = p.communicate()
+        if p.returncode:
+            raise AssertionError(f"corpus host {i} exited {p.returncode}: "
+                                 f"{e[-3000:]}")
+        *_, summary, count = o.splitlines()
+        launches.append(json.loads(count)["compose_launches"])
+        log(f"corpus host {i} of 2: {summary}; {launches[-1]} compose "
+            f"launches")
+    outs = {n: open(os.path.join(out, n), "rb").read()
+            for n in sorted(os.listdir(out)) if n.endswith(".jpg")}
+    if outs != one_host or not all(launches):
+        raise AssertionError(f"corpus on two hosts: {len(outs)} outputs, "
+                             f"launches {launches}, equal to one host: "
+                             f"{outs == one_host}")
+    log(f"corpus on two hosts: {len(outs)} outputs byte-identical to the "
+        f"one-host run")
+    return sum(launches)
+
+
 def phase_corpus(datas):
     import libmodjpeg_tpu_torch as mt
     from libmodjpeg_tpu_torch import codec
@@ -995,6 +1033,7 @@ def phase_corpus(datas):
         _compare_outputs(outs["cuda"], outs["cpu"], inside,
                          f"corpus {route}")
         if route == "stream":
+            one_host = outs["cuda"]
             for name, blob in outs["cuda"].items():
                 x = codec.decode(datas[int(name[1:4])])
                 y = codec.decode(blob)
@@ -1005,6 +1044,7 @@ def phase_corpus(datas):
     log(f"corpus: {launches} compose launches on the card")
     if launches == 0:
         raise AssertionError("corpus never launched the kernel")
+    host_launches = _corpus_two_hosts(src, png, one_host)
 
     images = [codec.decode(d) for d in datas[:N_COMPOSE_BATCH]]
     torch.cuda.synchronize()
@@ -1023,7 +1063,7 @@ def phase_corpus(datas):
     if batch_launches != images[0].num_components:
         raise AssertionError("compose_batch: expected one launch per "
                              "component")
-    return launches, batch_launches
+    return launches, host_launches, batch_launches
 
 
 # -- phase 9: betterjpeg on a whole 24 MP frame ----------------------------
@@ -1104,9 +1144,8 @@ def _bj_compose_breakdown(img, dropon):
     bc = tbatch.BatchComposer(img, dropon, tl, 0, 0, device="cuda",
                               compiled=cd)
     t_setup = time.perf_counter() - t0
-    origins = bc._region_origins()
-    regions = [[img.coefs[c][r0:r0 + h, c0:c0 + w]
-                for c, (r0, c0, h, w) in enumerate(origins)]]
+    origins = bc._origins
+    regions = [tbatch._footprint(img, origins)]
     quants = [[img.quant_table_for(c) for c in range(len(origins))]]
     log(f"betterjpeg compose, replayed: footprint {bc._meta} blocks per "
         f"component; compile_dropon {t_compile:.3f} s (masks on the card; "
@@ -1132,7 +1171,7 @@ def _bj_compose_breakdown(img, dropon):
     out = np.concatenate([a.reshape(1, -1) for a in parts], axis=1)
     exc_down = int((out != np.clip(out, -128, 127)).sum())
     refetched = int(exc_down > cap)
-    dev, _down, raw, _event, _keep = pending[0][0]
+    dev, _down, raw, _event, _keep, _step = pending[0][0]
     t0 = time.perf_counter()
     bc._fetch_rows(dev, raw, np.arange(1))
     t_refetch = time.perf_counter() - t0
@@ -1307,44 +1346,6 @@ def phase_betterjpeg():
     return launches
 
 
-# -- phase 10: the port's bench and scaling bench ----------------------------
-
-def phase_bench():
-    from libmodjpeg_tpu_torch.ops import compose_kernel as ck
-    from libmodjpeg_tpu_torch.scripts import bench, scaling_bench
-
-    t0 = time.perf_counter()
-    torch.cuda.synchronize()
-    ck.launches = 0
-    r = bench.main([])   # prints its JSON line; raises if a lane's path fails
-    launches = ck.launches
-    windows = {k: len(v["windows"]) for k, v in r["spread"].items()}
-    log(f"bench: {time.perf_counter() - t0:.1f} s, {launches} compose "
-        f"launches, windows per lane {windows}")
-    roof = r["kernel_roofline"]
-    if not 0 < roof["frac"] <= 1.05:
-        raise AssertionError(f"bench kernel_roofline frac {roof['frac']}")
-    if len(windows) != 5 or set(windows.values()) != {5}:
-        raise AssertionError(f"bench stream lanes: {windows}")
-    grid = r["grid_effects"]
-    if grid["rounds"] != EFFECT_ROUNDS or not grid["mp_s"] > 0:
-        raise AssertionError(f"bench grid_effects: {grid}")
-    if r["device"]["power_limit"] is None or r["blend_kernel"] != "cuda":
-        raise AssertionError(f"bench device: {r['device']}")
-    if launches == 0:
-        raise AssertionError("the bench never launched the kernel")
-
-    t0 = time.perf_counter()
-    s = scaling_bench.main(["--images", str(SCALING_IMAGES)])
-    scaling = sum(h["compose_launches"] for h in s["per_host_summaries"])
-    log(f"scaling bench: {time.perf_counter() - t0:.1f} s, "
-        f"{s['output_mismatches']} mismatches, {scaling} compose launches "
-        f"in the two-host run")
-    if s["output_mismatches"] or scaling == 0:
-        raise AssertionError(f"scaling bench: {s}")
-    return launches, scaling
-
-
 def main():
     from concurrent.futures import ThreadPoolExecutor
 
@@ -1361,9 +1362,8 @@ def main():
     ck.launches = 0
     cli_launches = phase_cli()
     grid_launches = phase_grid_session()
-    corpus_launches, batch_launches = phase_corpus(corpus)
+    corpus_launches, host_launches, batch_launches = phase_corpus(corpus)
     bj_launches = phase_betterjpeg()
-    bench_launches, scaling_launches = phase_bench()
     # compose: one stream batch's launches (phase 4); blend: the kernel
     # bench's largest default size, inputs cold (phase 3b)
     k_ms, p_ms, nbytes, flops = step
@@ -1393,10 +1393,9 @@ def main():
                              "cli": cli_launches,
                              "grid_session": grid_launches,
                              "corpus": corpus_launches,
+                             "corpus_two_hosts": host_launches,
                              "compose_batch": batch_launches,
-                             "betterjpeg": bj_launches,
-                             "bench": bench_launches,
-                             "scaling_bench": scaling_launches},
+                             "betterjpeg": bj_launches},
     }, {
         "name": "blend_blocks",
         "route": "cuda",

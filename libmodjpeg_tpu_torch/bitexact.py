@@ -196,16 +196,6 @@ def _tile(plane: np.ndarray) -> np.ndarray:
     return plane.reshape(h // 8, 8, w // 8, 8).transpose(0, 2, 1, 3)
 
 
-def _encode_q100_coefs(planes: list) -> list:
-    """Per-component uint8 full-res planes -> quantized Q100 coefficient
-    blocks [hib, wib, 8, 8] int16 (the jpeg_write_scanlines ->
-    jpeg_read_coefficients round trip, computed directly)."""
-    out = []
-    for plane in planes:
-        out.append(_quantize_q1(fdct_islow(_tile(plane))))
-    return out
-
-
 # ----------------------------------------------------- dropon compilation
 
 _ALPHA_FACTORS = np.full((8, 8), 0.5 * 0.5 / 1020.0, dtype=np.float64)

@@ -255,8 +255,10 @@ def _available_ram_bytes():
     return None
 
 
-def decode(data: bytes, nthreads: int = 0, max_pixel: int = 0) -> CoefImage:
-    """Decode a JPEG bitstream into a CoefImage (coefficients + metadata).
+def _decode(data: bytes, nthreads: int, max_pixel: int, finish):
+    """The native decode of ``data`` around ``finish(lib, handle, ptrs,
+    errbuf)``, the call that entropy-decodes into the planes; returns
+    (CoefImage, what ``finish`` returned).
 
     Two-phase zero-copy: the native decoder parses the frame header, we
     allocate the numpy coefficient planes, and the entropy decoder writes
@@ -275,30 +277,16 @@ def decode(data: bytes, nthreads: int = 0, max_pixel: int = 0) -> CoefImage:
     try:
         info = (ctypes.c_int32 * 9)()
         lib.mjt_get_info(handle, info)
-        (width, height, ncomps, jcs, prog, arith, ri, nmarkers,
-         precision) = list(info)
-
+        width, height, ncomps, jcs, prog, arith, _, _, precision = list(info)
         components = []
-        coefs = []
-        max_h = max_v = 1
         for c in range(ncomps):
             ci = (ctypes.c_int32 * 8)()
             lib.mjt_get_comp_info(handle, c, ci)
             comp_id, h, v, qno, wib, hib, pw, ph = list(ci)
-            components.append(
-                ComponentInfo(
-                    component_id=comp_id,
-                    h_samp=h,
-                    v_samp=v,
-                    quant_tbl_no=qno,
-                    width_in_blocks=wib,
-                    height_in_blocks=hib,
-                    padded_width_in_blocks=pw,
-                    padded_height_in_blocks=ph,
-                )
-            )
-            max_h = max(max_h, h)
-            max_v = max(max_v, v)
+            components.append(ComponentInfo(
+                component_id=comp_id, h_samp=h, v_samp=v, quant_tbl_no=qno,
+                width_in_blocks=wib, height_in_blocks=hib,
+                padded_width_in_blocks=pw, padded_height_in_blocks=ph))
         # Host-RAM bound (docs/SCALING.md "dense planes, no virtual-array
         # spill"): every coefficient plane is dense in host RAM — unlike
         # libjpeg's jmemmgr, which pages virtual block arrays to temp files
@@ -315,60 +303,56 @@ def decode(data: bytes, nthreads: int = 0, max_pixel: int = 0) -> CoefImage:
                 "build holds planes dense in RAM (no libjpeg-style "
                 "virtual-array spill) — set max_pixel to bound inputs, "
                 "or split the image (docs/SCALING.md)")
-        for c in components:
-            # np.zeros -> calloc: zero pages stay unmapped until a scan
-            # writes them (tiny crafted files can claim enormous frames)
-            coefs.append(np.zeros((c.padded_height_in_blocks,
-                                   c.padded_width_in_blocks, 8, 8),
-                                  dtype=np.int16))
-
+        # np.zeros -> calloc: zero pages stay unmapped until a scan writes
+        # them (tiny crafted files can claim enormous frames)
+        coefs = [np.zeros((c.padded_height_in_blocks,
+                           c.padded_width_in_blocks, 8, 8), dtype=np.int16)
+                 for c in components]
         ptrs = (ctypes.c_void_p * max(ncomps, 1))(
             *[a.ctypes.data_as(ctypes.c_void_p).value for a in coefs])
-        rc = lib.mjt_decode_finish(handle, ptrs, 1, errbuf, len(errbuf))
-        if rc != 0:
-            raise DecodeError(errbuf.value.decode("utf-8", "replace"))
+        finished = finish(lib, handle, ptrs, errbuf)
 
         quant_tables = {}
         for t in range(4):
             tbl = np.empty((8, 8), dtype=np.uint16)
             present = ctypes.c_int32(0)
             lib.mjt_get_qtable(
-                handle,
-                t,
+                handle, t,
                 tbl.ctypes.data_as(ctypes.POINTER(ctypes.c_uint16)),
-                ctypes.byref(present),
-            )
+                ctypes.byref(present))
             if present.value:
                 quant_tables[t] = tbl
 
         # markers (and a mid-file DRI) may arrive after begin(): re-read
         lib.mjt_get_info(handle, info)
-        nmarkers = info[7]
-        ri = info[6]
         markers = []
-        for i in range(nmarkers):
+        for i in range(info[7]):
             mlen = lib.mjt_get_marker_len(handle, i)
             buf = (ctypes.c_uint8 * max(mlen, 1))()
             code = ctypes.c_int32(0)
             lib.mjt_get_marker(handle, i, ctypes.byref(code), buf)
             markers.append((code.value, bytes(buf[:mlen])))
-
-        return CoefImage(
-            width=width,
-            height=height,
-            jpeg_color_space=jcs,
-            components=components,
-            coefs=coefs,
-            quant_tables=quant_tables,
-            sampling=Sampling(max_h_samp=max_h, max_v_samp=max_v),
-            markers=markers,
-            progressive=bool(prog),
-            arithmetic=bool(arith),
-            restart_interval=ri,
-            precision=precision,
-        )
+        img = CoefImage(
+            width=width, height=height, jpeg_color_space=jcs,
+            components=components, coefs=coefs, quant_tables=quant_tables,
+            sampling=Sampling(
+                max_h_samp=max([1] + [c.h_samp for c in components]),
+                max_v_samp=max([1] + [c.v_samp for c in components])),
+            markers=markers, progressive=bool(prog), arithmetic=bool(arith),
+            restart_interval=info[6], precision=precision)
+        return img, finished
     finally:
         lib.mjt_free_image(handle)
+
+
+def decode(data: bytes, nthreads: int = 0, max_pixel: int = 0) -> CoefImage:
+    """Decode a JPEG bitstream into a CoefImage (coefficients + metadata),
+    every MCU of it (see _decode)."""
+    def finish(lib, handle, ptrs, errbuf):
+        if lib.mjt_decode_finish(handle, ptrs, 1, errbuf, len(errbuf)) != 0:
+            raise DecodeError(errbuf.value.decode("utf-8", "replace"))
+
+    return _decode(data, nthreads, max_pixel, finish)[0]
 
 
 class SpliceIneligible(Exception):
@@ -395,48 +379,7 @@ def decode_band(data: bytes, row0: int, row1: int, max_pixel: int = 0):
     walk); encode_splice_band reads only band_splice[:13].
     row1 < 0 means "to the bottom" (the decode_tail shape).  Raises
     SpliceIneligible outside the envelope."""
-    lib = _load()
-    errbuf = ctypes.create_string_buffer(512)
-    handle = lib.mjt_decode_begin(data, len(data), 0, max_pixel, errbuf,
-                                  len(errbuf))
-    if not handle:
-        msg = errbuf.value.decode("utf-8", "replace")
-        if "max_pixel" in msg:
-            raise ImageSizeError(msg)
-        raise DecodeError(msg)
-    try:
-        info = (ctypes.c_int32 * 9)()
-        lib.mjt_get_info(handle, info)
-        (width, height, ncomps, jcs, prog, arith, ri, nmarkers,
-         precision) = list(info)
-        components = []
-        coefs = []
-        max_h = max_v = 1
-        for c in range(ncomps):
-            ci = (ctypes.c_int32 * 8)()
-            lib.mjt_get_comp_info(handle, c, ci)
-            comp_id, h, v, qno, wib, hib, pw, ph = list(ci)
-            components.append(ComponentInfo(
-                component_id=comp_id, h_samp=h, v_samp=v, quant_tbl_no=qno,
-                width_in_blocks=wib, height_in_blocks=hib,
-                padded_width_in_blocks=pw, padded_height_in_blocks=ph))
-            max_h = max(max_h, h)
-            max_v = max(max_v, v)
-        # same host-RAM bound as decode() (docs/SCALING.md)
-        need = sum(c.padded_height_in_blocks * c.padded_width_in_blocks * 128
-                   for c in components)
-        avail = _available_ram_bytes()
-        if avail is not None and need > avail:
-            raise ImageSizeError(
-                f"frame needs {need >> 20} MiB of coefficient planes but "
-                f"only {avail >> 20} MiB of host RAM is available "
-                "(docs/SCALING.md)")
-        for c in components:
-            coefs.append(np.zeros((c.padded_height_in_blocks,
-                                   c.padded_width_in_blocks, 8, 8),
-                                  dtype=np.int16))
-        ptrs = (ctypes.c_void_p * max(ncomps, 1))(
-            *[a.ctypes.data_as(ctypes.c_void_p).value for a in coefs])
+    def band(lib, handle, ptrs, errbuf):
         splice = (ctypes.c_int64 * 16)()
         rc = lib.mjt_decode_band(handle, row0, row1, ptrs, 1, splice,
                                  errbuf, len(errbuf))
@@ -445,33 +388,9 @@ def decode_band(data: bytes, row0: int, row1: int, max_pixel: int = 0):
             if msg.startswith("splice:"):
                 raise SpliceIneligible(msg)
             raise DecodeError(msg)
-        quant_tables = {}
-        for t in range(4):
-            tbl = np.empty((8, 8), dtype=np.uint16)
-            present = ctypes.c_int32(0)
-            lib.mjt_get_qtable(
-                handle, t,
-                tbl.ctypes.data_as(ctypes.POINTER(ctypes.c_uint16)),
-                ctypes.byref(present))
-            if present.value:
-                quant_tables[t] = tbl
-        lib.mjt_get_info(handle, info)
-        markers = []
-        for i in range(info[7]):
-            mlen = lib.mjt_get_marker_len(handle, i)
-            buf = (ctypes.c_uint8 * max(mlen, 1))()
-            code = ctypes.c_int32(0)
-            lib.mjt_get_marker(handle, i, ctypes.byref(code), buf)
-            markers.append((code.value, bytes(buf[:mlen])))
-        img = CoefImage(
-            width=width, height=height, jpeg_color_space=jcs,
-            components=components, coefs=coefs, quant_tables=quant_tables,
-            sampling=Sampling(max_h_samp=max_h, max_v_samp=max_v),
-            markers=markers, progressive=bool(prog), arithmetic=bool(arith),
-            restart_interval=info[6], precision=precision)
-        return img, tuple(splice)
-    finally:
-        lib.mjt_free_image(handle)
+        return tuple(splice)
+
+    return _decode(data, 0, max_pixel, band)
 
 
 def encode_splice_band(data: bytes, img: CoefImage, row0: int, row1: int,

@@ -20,7 +20,7 @@ import torch
 from . import constants as C
 from .errors import NullDataError, UnsupportedColorspaceError
 from .model import CoefImage, CompiledDropon, Dropon
-from .state import DeviceDropon
+from .state import DeviceDropon, compiled_dropon_to_torch
 
 from .ops import dct as dctops
 from .ops.compose import mask_pix
@@ -261,6 +261,36 @@ def compile_dropon(d: Dropon, img: CoefImage, blockoffset_x: int,
         alpha_weights=blocks(1),
         samp_factors=[(ci.h_samp, ci.v_samp) for ci in img.components[:n]],
         mask_pixels=blocks(2))
+
+
+def _place_dropon(img: CoefImage, d: Dropon, align: int, offset_x: int,
+                  offset_y: int, device, compiled=None):
+    """Placement and compile of ``d`` against ``img`` on ``device``.
+
+    Returns None when the placement is a no-op, else (placement, dropon,
+    origins, host_bytes).  ``dropon`` is the DeviceDropon, compiled on
+    ``device`` (compile_dropon_device) or, from a ready ``compiled``
+    CompiledDropon (a JAX-package one carried over by
+    state.from_reference), copied up from the host; ``host_bytes`` counts
+    the bytes of it that passed through host memory, 0 when it was
+    compiled on ``device``.  ``origins``: per component (row0, col0, h, w),
+    the footprint's rectangle in blocks.
+    """
+    p = plan_placement(img, d, align, offset_x, offset_y)
+    if p.noop:
+        return None
+    if compiled is None:
+        dd = compile_dropon_device(d, img, p.blockoffset_x, p.blockoffset_y,
+                                   p.crop_x, p.crop_y, p.crop_w, p.crop_h,
+                                   device=device)
+        host_bytes = 0
+    else:
+        dd = compiled_dropon_to_torch(compiled, device)
+        host_bytes = sum(t.numel() * t.element_size()
+                         for t in dd.drops + dd.masks)
+    origins = tuple((p.block_y * ci.v_samp, p.block_x * ci.h_samp, h, w)
+                    for ci, (h, w) in zip(img.components, dd.shapes))
+    return p, dd, origins, host_bytes
 
 
 def compose(img: CoefImage, d: Dropon, align: int = 0, offset_x: int = 0,

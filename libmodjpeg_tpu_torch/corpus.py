@@ -129,6 +129,25 @@ def _geometry_key(img) -> tuple:
                          for t, tbl in img.quant_tables.items())))
 
 
+def _out_path(cfg: CorpusConfig, inp: str) -> str:
+    return os.path.join(cfg.output_dir, os.path.basename(inp))
+
+
+def _failed(journal, metrics, path: str, stage: str, err: str) -> None:
+    """Journal a file's failure at ``stage`` and count it."""
+    journal.record({"input": path, "status": "error", "stage": stage,
+                    "error": err})
+    metrics.files_failed += 1
+
+
+def _done(cfg, journal, metrics, path: str, mp: float) -> None:
+    """Journal a file's written output of ``mp`` megapixels and count it."""
+    journal.record({"input": path, "status": "done",
+                    "output": _out_path(cfg, path), "mp": round(mp, 3)})
+    metrics.files_done += 1
+    metrics.megapixels += mp
+
+
 @contextlib.contextmanager
 def _trace(trace_dir, device, host_id: int):
     """torch.profiler over the run, written as a Chrome trace
@@ -195,9 +214,6 @@ def _run_corpus_batches(cfg: CorpusConfig, todo, dropon, journal, metrics,
 
     composers = {}  # geometry key -> BatchComposer
 
-    def out_path(inp):
-        return os.path.join(cfg.output_dir, os.path.basename(inp))
-
     def decode_one(path):
         t0 = time.perf_counter()
         try:
@@ -210,14 +226,13 @@ def _run_corpus_batches(cfg: CorpusConfig, todo, dropon, journal, metrics,
         path, img = args
         t0 = time.perf_counter()
         try:
-            write_jpeg(img, out_path(path), options=cfg.encode_options,
+            write_jpeg(img, _out_path(cfg, path), options=cfg.encode_options,
                        restart_interval=cfg.restart_interval)
             return path, img.width * img.height / 1e6, \
                 time.perf_counter() - t0, None
         except (ModJpegError, OSError) as e:
             return path, 0.0, time.perf_counter() - t0, str(e)
 
-    failures = 0
     with ThreadPoolExecutor(max_workers=cfg.io_workers) as pool:
         for i in range(0, len(todo), cfg.batch_size):
             chunk = todo[i:i + cfg.batch_size]
@@ -228,10 +243,7 @@ def _run_corpus_batches(cfg: CorpusConfig, todo, dropon, journal, metrics,
             ok = []
             for path, img, dt, err in decoded:
                 if err is not None:
-                    journal.record({"input": path, "status": "error",
-                                    "stage": "decode", "error": err})
-                    metrics.files_failed += 1
-                    failures += 1
+                    _failed(journal, metrics, path, "decode", err)
                 else:
                     ok.append((path, img))
 
@@ -265,19 +277,12 @@ def _run_corpus_batches(cfg: CorpusConfig, todo, dropon, journal, metrics,
             metrics.add("encode", time.perf_counter() - t0)
             for path, mp, dt, err in encoded:
                 if err is not None:
-                    journal.record({"input": path, "status": "error",
-                                    "stage": "encode", "error": err})
-                    metrics.files_failed += 1
-                    failures += 1
+                    _failed(journal, metrics, path, "encode", err)
                 else:
-                    journal.record({"input": path, "status": "done",
-                                    "output": out_path(path),
-                                    "mp": round(mp, 3)})
-                    metrics.files_done += 1
-                    metrics.megapixels += mp
-            if cfg.max_failures >= 0 and failures > cfg.max_failures:
-                raise RuntimeError(
-                    f"aborting: {failures} failures exceeds limit")
+                    _done(cfg, journal, metrics, path, mp)
+            if 0 <= cfg.max_failures < metrics.files_failed:
+                raise RuntimeError(f"aborting: {metrics.files_failed} "
+                                   f"failures exceeds limit")
 
 
 def _run_corpus_stream(cfg: CorpusConfig, todo, skipped, dropon, journal,
@@ -295,13 +300,9 @@ def _run_corpus_stream(cfg: CorpusConfig, todo, skipped, dropon, journal,
 
     from .parallel.batch import BatchComposer
 
-    failures = 0
     stream_paths = {}       # "surgical"/"splice"/"mixed"/"full" -> files
     fallback_reasons = {}   # per-file fallback reason -> count
     composers = {}
-
-    def out_path(inp):
-        return os.path.join(cfg.output_dir, os.path.basename(inp))
 
     def load(path):
         """Read bytes + geometry probe (header-only when possible)."""
@@ -321,17 +322,11 @@ def _run_corpus_stream(cfg: CorpusConfig, todo, skipped, dropon, journal,
     def write_out(args):
         path, blob = args
         try:
-            with open(out_path(path), "wb") as f:
+            with open(_out_path(cfg, path), "wb") as f:
                 f.write(blob)
             return path, None
         except OSError as e:
             return path, str(e)
-
-    def done(path, mp_file):
-        journal.record({"input": path, "status": "done",
-                        "output": out_path(path), "mp": round(mp_file, 3)})
-        metrics.files_done += 1
-        metrics.megapixels += mp_file
 
     def stream(bc, datas, batch):
         return list(bc.watermark_stream(
@@ -348,10 +343,7 @@ def _run_corpus_stream(cfg: CorpusConfig, todo, skipped, dropon, journal,
             buckets = {}
             for path, data, key, err in loaded:
                 if err is not None:
-                    journal.record({"input": path, "status": "error",
-                                    "stage": "probe", "error": err})
-                    metrics.files_failed += 1
-                    failures += 1
+                    _failed(journal, metrics, path, "probe", err)
                 else:
                     buckets.setdefault(key, []).append((path, data))
 
@@ -374,15 +366,11 @@ def _run_corpus_stream(cfg: CorpusConfig, todo, skipped, dropon, journal,
                         t1 = time.perf_counter()
                         try:
                             blob = stream(bc, [data], 1)[0]
-                            with open(out_path(path), "wb") as f:
+                            with open(_out_path(cfg, path), "wb") as f:
                                 f.write(blob)
-                            done(path, mp_file)
+                            _done(cfg, journal, metrics, path, mp_file)
                         except (ModJpegError, ValueError, OSError) as e:
-                            journal.record({"input": path, "status": "error",
-                                            "stage": "stream",
-                                            "error": str(e)})
-                            metrics.files_failed += 1
-                            failures += 1
+                            _failed(journal, metrics, path, "stream", str(e))
                         metrics.add("stream", time.perf_counter() - t1)
                     continue
                 metrics.add("stream", time.perf_counter() - t0)
@@ -392,20 +380,17 @@ def _run_corpus_stream(cfg: CorpusConfig, todo, skipped, dropon, journal,
                 metrics.add("write", time.perf_counter() - t0)
                 for path, err in written:
                     if err is not None:
-                        journal.record({"input": path, "status": "error",
-                                        "stage": "write", "error": err})
-                        metrics.files_failed += 1
-                        failures += 1
+                        _failed(journal, metrics, path, "write", err)
                     else:
-                        done(path, mp_file)
+                        _done(cfg, journal, metrics, path, mp_file)
                 sp = getattr(bc, "last_stream_path", "full")
                 stream_paths[sp] = stream_paths.get(sp, 0) + len(members)
                 for r, n in getattr(bc, "last_fallback_reasons",
                                     {}).items():
                     fallback_reasons[r] = fallback_reasons.get(r, 0) + n
-            if cfg.max_failures >= 0 and failures > cfg.max_failures:
-                raise RuntimeError(
-                    f"aborting: {failures} failures exceeds limit")
+            if 0 <= cfg.max_failures < metrics.files_failed:
+                raise RuntimeError(f"aborting: {metrics.files_failed} "
+                                   f"failures exceeds limit")
 
     s = metrics.summary()
     s["skipped_resume"] = skipped

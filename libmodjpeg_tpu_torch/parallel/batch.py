@@ -22,17 +22,18 @@ mesh's "batch" axis when one is given).
 from __future__ import annotations
 
 import itertools
+import threading
 import time
 from typing import Optional, Sequence
 
 import numpy as np
 import torch
 
-from .. import tracing
+from .. import codec, tracing
 from ..model import CoefImage, Dropon
 
 from ..ops.compose import compose_rows
-from ..state import DeviceDropon, compiled_dropon_to_torch
+from ..state import DeviceDropon
 from .mesh import Mesh, ShardedRows, batch_sharding, shard_rows, stream_mesh
 
 _STREAMS = itertools.count()  # the ``stream`` id of each watermark_stream
@@ -186,6 +187,168 @@ def packed_compose(meta, wire, qstack, drops, masks, down_cap):
                       down_cap)
 
 
+def _footprint(im: CoefImage, origins, regions=None) -> list:
+    """The footprint of ``im`` at ``origins`` (per component (r0, c0, h, w)
+    in blocks), one view per component; with ``regions``, written there
+    first."""
+    views = [im.coefs[c][r0:r0 + h, c0:c0 + w]
+             for c, (r0, c0, h, w) in enumerate(origins)]
+    for view, region in zip(views, regions or ()):
+        view[...] = region
+    return views
+
+
+class _Route:
+    """What the files of one watermark_stream share: the composer's route
+    for the stream (a surgical plan, the band's MCU rows, or neither), the
+    footprint's origins, the encode settings and the fallback count."""
+
+    def __init__(self, bc, plan, band, options, restart_interval,
+                 max_pixel):
+        self.bc, self.plan, self.band = bc, plan, band
+        self.origins = None if bc.noop else bc._origins
+        self.options, self.restart_interval = options, restart_interval
+        self.max_pixel = max_pixel
+        self._lock = threading.Lock()  # pool threads count fallbacks
+
+    def fallback(self, reason: str) -> None:
+        with self._lock:
+            reasons = self.bc.last_fallback_reasons
+            reasons[reason] = reasons.get(reason, 0) + 1
+            self.bc.last_stream_path = "mixed"
+
+    def decode(self, data: bytes, payload, ids: dict, nthreads: int):
+        """One file decoded on the route it can take (a pool task):
+        surgical with an extract ``payload``, else the band when the stream
+        has one and the file fits it, else the full path."""
+        if payload is not None:
+            return _SurgicalFile(self, data, ids, payload)
+        if self.band is not None:
+            try:
+                img, info = codec.decode_band(data, self.band[0],
+                                              self.band[1],
+                                              max_pixel=self.max_pixel)
+                return _BandFile(self, data, ids, img, info)
+            except codec.SpliceIneligible as e:
+                self.fallback(str(e))
+        return _FullFile(self, data, ids, codec.decode(
+            data, max_pixel=self.max_pixel, nthreads=nthreads))
+
+    def encode(self, img: CoefImage) -> bytes:
+        return codec.encode(img, options=self.options,
+                            restart_interval=self.restart_interval)
+
+    def graft(self, data: bytes, regions) -> bytes:
+        """Full decode of ``data`` with the composed footprint ``regions``
+        grafted in, re-encoded with fresh tables: a splice's fallback."""
+        img = codec.decode(data, max_pixel=self.max_pixel, nthreads=1)
+        _footprint(img, self.origins, regions)
+        return self.encode(img)
+
+
+class _FullFile:
+    """A stream file on the full path: its decoded image, re-encoded whole.
+    ``ids`` are its span ids (stream, batch, file)."""
+
+    def __init__(self, route: _Route, data: bytes, ids: dict,
+                 img: CoefImage):
+        self.route, self.data, self.ids, self.img = route, data, ids, img
+
+    def regions(self) -> list:
+        return _footprint(self.img, self.route.origins)
+
+    def quants(self) -> list:
+        return [self.img.quant_table_for(c)
+                for c in range(len(self.route.origins))]
+
+    def scatter(self, regions) -> None:
+        _footprint(self.img, self.route.origins, regions)
+
+    def encode(self) -> bytes:
+        return self.route.encode(self.img)
+
+    def decoded(self, stats: dict, cpu: float) -> None:
+        """Count its decode (``cpu`` thread seconds) in the route's stats."""
+
+    def encoded(self, stats: dict, cpu: float) -> None:
+        """Count its encode (``cpu`` thread seconds) in the route's stats."""
+
+
+class _BandFile(_FullFile):
+    """A file on the band splice: the band's image and codec.decode_band's
+    splice info.  The prefix is byte-copied and the suffix bit-shift-copied
+    around the re-encoded band."""
+
+    def __init__(self, route, data, ids, img, info):
+        super().__init__(route, data, ids, img)
+        self.info = info
+
+    def encode(self) -> bytes:
+        try:
+            return codec.encode_splice_band(self.data, self.img,
+                                            self.route.band[0],
+                                            self.route.band[1], self.info)
+        except codec.EncodeError as e:
+            # the band splice keeps the original tables for bit-identity,
+            # which may lack a code the composed band now needs: redo on the
+            # full path; any other encode error is counted under its own
+            # message
+            self.route.fallback(
+                "splice: original tables lack a needed symbol"
+                if "has no Huffman code" in str(e) else f"splice: {e}")
+            return self.route.graft(self.data, self.regions())
+
+    def decoded(self, stats, cpu):
+        stats["band_prefix_s"] += self.info[13] * 1e-9
+        stats["band_decode_s"] += self.info[14] * 1e-9
+        stats["band_after_s"] += self.info[15] * 1e-9
+
+
+class _SurgicalFile:
+    """A file on the surgical splice: its extract payload and window planes
+    (only the restart segments the footprint touches), in place of a
+    decoded image."""
+
+    def __init__(self, route, data, ids, payload):
+        self.route, self.data, self.ids = route, data, ids
+        self.payload = payload
+        self.planes = route.plan.decode_windows(payload)
+        self.spliced = True
+
+    def regions(self) -> list:
+        return self.route.plan.gather(self.planes)
+
+    def quants(self) -> list:
+        return self.payload[4]
+
+    def scatter(self, regions) -> None:
+        self.route.plan.scatter(self.planes, regions)
+
+    def encode(self) -> bytes:
+        try:
+            with tracing.span("mjt.stream.surgical_reencode", **self.ids):
+                return self.route.plan.reencode(self.data, self.payload,
+                                                self.planes)
+        except codec.EncodeError:
+            # the original (optimized) tables lack a code the composed
+            # segment now needs: redo on the full path, which the surgical
+            # counters then leave out
+            self.spliced = False
+            self.route.fallback(
+                "surgical: original tables lack a needed symbol")
+            return self.route.graft(self.data, self.regions())
+
+    def decoded(self, stats, cpu):
+        stats["surgical_window_cpu_s"] += cpu
+
+    def encoded(self, stats, cpu):
+        if self.spliced:
+            stats["surgical_reencode_cpu_s"] += cpu
+            stats["surgical_recoded_bytes"] += sum(
+                e - s for s, e in self.payload[1])
+            stats["surgical_entropy_bytes"] += self.payload[5]
+
+
 class BatchComposer:
     """Reusable compiled-dropon compose over batches of same-geometry images.
 
@@ -202,7 +365,7 @@ class BatchComposer:
     def __init__(self, template: CoefImage, dropon: Dropon, align: int = 0,
                  offset_x: int = 0, offset_y: int = 0,
                  mesh: Optional[Mesh] = None, *, device=None, compiled=None):
-        from ..composer import compile_dropon, plan_placement
+        from ..composer import _place_dropon
 
         self.template = template
         self.mesh = mesh
@@ -213,32 +376,15 @@ class BatchComposer:
                                  f"device {first}")
             device = first
         self.device = torch.device("cuda" if device is None else device)
-        p = plan_placement(template, dropon, align, offset_x, offset_y)
-        self.noop = p.noop
+        placed = _place_dropon(template, dropon, align, offset_x, offset_y,
+                               self.device, compiled)
+        self.noop = placed is None
         if self.noop:
             return
-        if compiled is None:
-            compiled = compile_dropon(dropon, template, p.blockoffset_x,
-                                      p.blockoffset_y, p.crop_x, p.crop_y,
-                                      p.crop_w, p.crop_h, device=self.device)
-        self.cd = compiled
-        self.block_x = p.block_x
+        p, self._dev, self._origins, _ = placed
         self.block_y = p.block_y
-        self._dev = compiled_dropon_to_torch(self.cd, self.device)
         self._dev_dropons = {self.device: self._dev}
-        self._comp_shapes = list(self._dev.shapes)
         self._meta = self._dev.meta
-        # per component (zero, DC-only, general) mask-block counts, for
-        # diagnostics only: one kernel serves every class
-        self.mask_block_classes = []
-        for weights in self.cd.alpha_weights:
-            h, w = weights.shape[:2]
-            nz = np.ascontiguousarray(weights, np.float32).reshape(
-                h * w, 64) != 0.0
-            zero = ~nz.any(axis=1)
-            dc = nz[:, 0] & ~nz[:, 1:].any(axis=1)
-            self.mask_block_classes.append(
-                (int(zero.sum()), int(dc.sum()), int((~zero & ~dc).sum())))
         # downlink exception capacity (power-of-two buckets, widened when a
         # batch overflows; overflowed rows restore from the raw output)
         self._down_cap = 32
@@ -251,29 +397,45 @@ class BatchComposer:
             else list(batch_sharding(self._stream_mesh)))
         self._streams = {d: torch.cuda.Stream(d)
                          for d in self._shard_devices if d.type == "cuda"}
+        # the compose streams start behind the compile, which is queued on
+        # the current stream
+        for d, stream in self._streams.items():
+            stream.wait_stream(torch.cuda.current_stream(d))
         self.last_dispatch_devices = 1
 
     def _dropon_on(self, device) -> DeviceDropon:
-        """The compiled dropon on ``device``, moved there at first use."""
+        """The compiled dropon on ``device``, moved there at first use; the
+        device's compose stream then waits for the move."""
         dd = self._dev_dropons.get(device)
         if dd is None:
-            dd = compiled_dropon_to_torch(self.cd, device)
+            src = self._dev
+            drops, masks, weights = (tuple(t.to(device) for t in ts) for ts
+                                     in (src.drops, src.masks, src.weights))
+            dd = DeviceDropon(drops, masks, src.shapes, weights)
+            if device in self._streams:
+                self._streams[device].wait_stream(
+                    torch.cuda.current_stream(device))
             self._dev_dropons[device] = dd
         return dd
 
     def compose_images(self, images: Sequence[CoefImage]) -> None:
         """In-place batched compose: only the overlay footprint travels to
-        the device and back, all components in one device step."""
-        self.finish(self.compose_images_async(images), images)
+        the device and back, all components in one device step.  Each image
+        composes with its OWN quant tables."""
+        if self.noop:
+            return
+        origins = self._origins
+        pending = self._pack_regions(
+            [_footprint(im, origins) for im in images],
+            [[im.quant_table_for(c) for c in range(len(origins))]
+             for im in images])
+        for im, regions in zip(images, zip(*self._unpack_regions(pending))):
+            _footprint(im, origins, regions)
 
     def _region_origins(self) -> list:
-        """Per component (r0, c0, h, w) block rectangles of the footprint."""
-        origins = []
-        for c, (h, w) in enumerate(self._comp_shapes):
-            ci = self.template.components[c]
-            origins.append((self.block_y * ci.v_samp,
-                            self.block_x * ci.h_samp, h, w))
-        return origins
+        """A copy of ``_origins``: per component (r0, c0, h, w), the
+        footprint's block rectangle."""
+        return list(self._origins)
 
     def _pack_regions(self, regions, quants):
         """Dispatch the packed compose for per-file footprint regions.
@@ -380,35 +542,11 @@ class BatchComposer:
             self._down_cap = cap
         flat = flat[:n]
         off, parts = 0, []
-        for (h, w) in self._comp_shapes:
+        for (h, w) in self._dev.shapes:
             sz = h * w * 64
             parts.append(flat[:, off:off + sz].reshape(n, h, w, 8, 8))
             off += sz
         return parts
-
-    def compose_images_async(self, images: Sequence[CoefImage]):
-        """Dispatch the region compose without waiting; returns a pending
-        handle for finish().  Each image composes with its OWN quant
-        tables."""
-        if self.noop:
-            return None
-        origins = self._region_origins()
-        regions = [[im.coefs[c][r0:r0 + h, c0:c0 + w]
-                    for c, (r0, c0, h, w) in enumerate(origins)]
-                   for im in images]
-        quants = [[im.quant_table_for(c) for c in range(len(origins))]
-                  for im in images]
-        return self._pack_regions(regions, quants)
-
-    def finish(self, pending, images: Sequence[CoefImage]) -> None:
-        """Fetch a compose_images_async result and scatter it back."""
-        if pending is None:
-            return
-        parts = self._unpack_regions(pending)
-        origins = self._region_origins()
-        for c, (r0, c0, h, w) in enumerate(origins):
-            for i, im in enumerate(images):
-                im.coefs[c][r0:r0 + h, c0:c0 + w] = parts[c][i]
 
     def _surgical_plan(self):
         """Lazily built surgical splice plan (libmodjpeg_tpu.surgical);
@@ -417,56 +555,42 @@ class BatchComposer:
         if not hasattr(self, "_splan"):
             from ..surgical import SurgicalPlan
 
-            self._splan = SurgicalPlan(self.template, self._region_origins(),
+            self._splan = SurgicalPlan(self.template, self._origins,
                                        self.template.restart_interval)
         return self._splan
 
-    def _compose_surgical_async(self, plan, planes_list, quants_list):
-        """Pack the gathered footprint regions of a batch of window planes
-        and dispatch the same packed compose the full path uses."""
-        regions = [plan.gather(p) for p in planes_list]
-        return self._pack_regions(regions, quants_list)
-
-    def _finish_surgical(self, plan, pending, planes_list) -> None:
-        parts = self._unpack_regions(pending)
-        for i, planes in enumerate(planes_list):
-            plan.scatter(planes, [p[i] for p in parts])
-
-    def _stream_route(self, surgical, options: int, restart_interval):
-        """(surgical plan or None, band rows (row0, row1) or None) for a
-        stream; sets last_stream_path and clears last_fallback_reasons."""
-        plan = None
-        if surgical is not False and not self.noop and options == 0 and (
-                restart_interval is None
-                or restart_interval == self.template.restart_interval):
-            plan = self._surgical_plan()
-            if not plan.ok:
-                plan = None
-        # Restart-free BAND splice (codec.decode_band/encode_splice_band):
-        # when the surgical plan does not apply, only the footprint's MCU
-        # rows are decoded and re-encoded; the prefix is byte-copied and the
-        # suffix bit-shift-copied — output bytes identical to the full path.
-        splice_band = None
-        if (plan is None and surgical is not False and not self.noop
-                and options == 0
-                and not self.template.progressive
-                and not self.template.arithmetic
-                and self.template.restart_interval == 0
-                and (restart_interval is None or restart_interval == 0)):
-            t = self.template
-            rows_total = -(-t.height // (8 * t.sampling.max_v_samp))
-            mcu_rows = max(
-                -(-h // t.components[c].v_samp)
-                for c, (h, _) in enumerate(self._comp_shapes))
-            row0 = self.block_y
-            row1 = min(self.block_y + mcu_rows, rows_total)
-            if row0 > 0 or row1 < rows_total:
-                splice_band = (row0, row1)
+    def _stream_route(self, surgical, options: int, restart_interval,
+                      max_pixel: int) -> _Route:
+        """The route of a stream: its surgical plan or None, its band rows
+        (row0, row1) or None; sets last_stream_path and clears
+        last_fallback_reasons."""
+        t = self.template
+        plan = splice_band = None
+        if surgical is not False and not self.noop and options == 0:
+            if restart_interval in (None, t.restart_interval):
+                plan = self._surgical_plan()
+                if not plan.ok:
+                    plan = None
+            # Restart-free BAND splice (codec.decode_band /
+            # encode_splice_band): when the surgical plan does not apply,
+            # only the footprint's MCU rows are decoded and re-encoded; the
+            # prefix is byte-copied and the suffix bit-shift-copied — output
+            # bytes identical to the full path.
+            if (plan is None and not t.progressive and not t.arithmetic
+                    and t.restart_interval == 0
+                    and restart_interval in (None, 0)):
+                rows_total = -(-t.height // (8 * t.sampling.max_v_samp))
+                mcu_rows = max(-(-h // t.components[c].v_samp)
+                               for c, (h, _) in enumerate(self._dev.shapes))
+                row1 = min(self.block_y + mcu_rows, rows_total)
+                if self.block_y > 0 or row1 < rows_total:
+                    splice_band = (self.block_y, row1)
         self.last_stream_path = ("surgical" if plan is not None else
                                  "splice" if splice_band is not None else
                                  "full")
         self.last_fallback_reasons = {}
-        return plan, splice_band
+        return _Route(self, plan, splice_band, options, restart_interval,
+                      max_pixel)
 
     def watermark_stream(self, datas, *, batch: int = 32, pool=None,
                          options: int = 0, restart_interval=None,
@@ -544,10 +668,7 @@ class BatchComposer:
         """
         import os
         import queue
-        import threading
         from concurrent.futures import ThreadPoolExecutor
-
-        from .. import codec
 
         seq = next(_STREAMS)
         stats = {"batches": 0, "start_s": 0.0, "decode_s": 0.0,
@@ -590,226 +711,112 @@ class BatchComposer:
                         pass
             return False
 
-        reasons_lock = threading.Lock()  # pool threads count fallbacks
+        def forward(dst, item, key: str, b: int) -> None:
+            """Hand ``stop`` or an error on to ``dst`` after batch ``b``."""
+            put_to(dst, item, key, {"stream": seq, "batch": b})
 
-        def fallback(reason):
-            with reasons_lock:
-                self.last_fallback_reasons[reason] = \
-                    self.last_fallback_reasons.get(reason, 0) + 1
-                self.last_stream_path = "mixed"
+        def cpu_timed(fn):
+            """``fn`` as a pool task that also returns its thread CPU
+            seconds."""
+            def task(*args):
+                c0 = time.thread_time()
+                out = fn(*args)
+                return out, time.thread_time() - c0
+            return task
 
-        def decode_batch(chunk, ids):
-            """Decode a batch: surgical windows / splice bands where
-            eligible, full decode otherwise."""
+        def decode_batch(chunk, ids) -> list:
+            """Decode a batch on the pool: one file object per input, on the
+            route it takes."""
             n = len(chunk)
             payloads = [None] * n
-            splices = [None] * n
-
-            def extract_task(data):
-                c0 = time.thread_time()
-                got = plan.extract(data)
-                return got, time.thread_time() - c0
-
-            def prep_one(i):
-                if payloads[i] is not None:
-                    return plan.decode_windows(payloads[i])
-                if splice_band is not None:
-                    try:
-                        img, sp = codec.decode_band(chunk[i],
-                                                    splice_band[0],
-                                                    splice_band[1],
-                                                    max_pixel=max_pixel)
-                        splices[i] = sp
-                        return img
-                    except codec.SpliceIneligible as e:
-                        fallback(str(e))
-                # the pool already decodes files concurrently; intra-file
-                # thread parallelism on top would oversubscribe
-                return codec.decode(chunk[i], max_pixel=max_pixel,
-                                    nthreads=1 if n > 1 else 0)
-
-            def prep_task(i):
-                c0 = time.thread_time()
-                img = prep_one(i)
-                return img, time.thread_time() - c0
-
             extract_cpu = 0.0
             with tracing.timed(stats, "decode_s", "mjt.stream.decode", **ids):
-                if plan is not None:
+                if route.plan is not None:
                     with tracing.timed(stats, "surgical_extract_s",
                                        "mjt.stream.surgical_extract", **ids):
-                        extracted = list(pool.map(extract_task, chunk))
+                        extracted = list(pool.map(
+                            cpu_timed(route.plan.extract), chunk))
                     for i, ((payload, reason), cpu) in enumerate(extracted):
                         extract_cpu += cpu
                         if payload is None:
-                            fallback(reason)
-                        else:
-                            payloads[i] = payload
-                done = list(pool.map(prep_task, range(n)))
+                            route.fallback(reason)
+                        payloads[i] = payload
+                # the pool already decodes files concurrently; intra-file
+                # thread parallelism on top would oversubscribe
+                done = list(pool.map(
+                    cpu_timed(route.decode), chunk, payloads,
+                    [dict(ids, file=ids["file"] + i) for i in range(n)],
+                    [1 if n > 1 else 0] * n))
             stats["decode_cpu_s"] += extract_cpu + sum(cpu for _, cpu in done)
-            stats["surgical_window_cpu_s"] += sum(
-                cpu for p, (_, cpu) in zip(payloads, done) if p is not None)
-            for sp in splices:
-                if sp is not None:
-                    stats["band_prefix_s"] += sp[13] * 1e-9
-                    stats["band_decode_s"] += sp[14] * 1e-9
-                    stats["band_after_s"] += sp[15] * 1e-9
-            return payloads, splices, [img for img, _ in done]
+            for f, cpu in done:
+                f.decoded(stats, cpu)
+            return [f for f, _ in done]
 
-        def dispatch_batch(payloads, prepped, ids):
+        def dispatch(ids, files, _):
             """Gather footprint regions and dispatch the packed device step
-            (one host->device transfer) — every path shares it."""
+            (one host->device transfer) — every route shares it."""
             if self.noop:
                 return None
-            regions, quants = [], []
-            for i in range(len(prepped)):
-                if payloads[i] is not None:
-                    regions.append(plan.gather(prepped[i]))
-                    quants.append(payloads[i][4])
-                else:
-                    im = prepped[i]
-                    regions.append([im.coefs[c][r0:r0 + h, c0:c0 + w]
-                                    for c, (r0, c0, h, w)
-                                    in enumerate(origins)])
-                    quants.append([im.quant_table_for(c)
-                                   for c in range(len(origins))])
+            regions = [f.regions() for f in files]
+            quants = [f.quants() for f in files]
             with tracing.timed(stats, "pack_dispatch_s",
                                "mjt.stream.dispatch", **ids):
                 return self._pack_regions(regions, quants)
+
+        def fetch(ids, files, pending):
+            """Wait for the device->host transfer off the consumer thread, so
+            batch i's wait overlaps batch i-1's (CPU-bound) encode."""
+            if pending is None:
+                return None
+            with tracing.timed(stats, "fetch_s", "mjt.stream.fetch", **ids):
+                parts = self._unpack_regions(pending)
+            # the device spans' end events have been waited on
+            steps = [p[5].device_ms for p in pending[0] if p[5] is not None]
+            if steps:
+                stats["device_step_s"] = (stats.get("device_step_s", 0.0)
+                                          + sum(steps) * 1e-3)
+            return parts
 
         def producer():
             b = first = 0
             try:
                 it = iter(datas)
                 while not closed.is_set():
-                    chunk = []
-                    for _ in range(batch):
-                        try:
-                            chunk.append(next(it))
-                        except StopIteration:
-                            break
+                    chunk = list(itertools.islice(it, batch))
                     if not chunk:
                         break
                     ids = {"stream": seq, "batch": b, "file": first}
-                    payloads, splices, prepped = decode_batch(chunk, ids)
-                    if not put_to(q0, (ids, chunk, payloads, splices,
-                                       prepped), "producer_blocked_s", ids):
+                    if not put_to(q0, (ids, decode_batch(chunk, ids), None),
+                                  "producer_blocked_s", ids):
                         return
                     b += 1
                     first += len(chunk)
-                put_to(q0, stop, "producer_blocked_s",
-                       {"stream": seq, "batch": b})
+                item = stop
             except BaseException as e:  # surface decode errors to the consumer
-                put_to(q0, e, "producer_blocked_s",
-                       {"stream": seq, "batch": b})
+                item = e
+            forward(q0, item, "producer_blocked_s", b)
 
-        def dispatcher():
-            """Pack + host->device dispatch off the decode thread, so batch
-            i's upload overlaps batch i+1's decode."""
+        def relay(src, dst, work, idle_key: str, blocked_key: str):
+            """A stage thread: each batch of ``src`` with its handle
+            replaced by work(ids, files, handle), handed on to ``dst``;
+            ``stop`` and errors are handed on, and the thread ends with them
+            or once the stream is closed."""
             b = 0
             try:
                 while True:
-                    item = get_from(q0, "dispatcher_idle_s",
-                                    {"stream": seq, "batch": b})
+                    item = get_from(src, idle_key, {"stream": seq, "batch": b})
                     if item is None:
                         return
                     if item is stop or isinstance(item, BaseException):
-                        put_to(q, item, "dispatcher_blocked_s",
-                               {"stream": seq, "batch": b})
-                        return
-                    ids, chunk, payloads, splices, prepped = item
-                    pending = dispatch_batch(payloads, prepped, ids)
-                    if not put_to(q, (ids, chunk, payloads, splices, prepped,
-                                      pending), "dispatcher_blocked_s", ids):
+                        break
+                    ids, files, handle = item
+                    if not put_to(dst, (ids, files, work(ids, files, handle)),
+                                  blocked_key, ids):
                         return
                     b += 1
             except BaseException as e:
-                put_to(q, e, "dispatcher_blocked_s",
-                       {"stream": seq, "batch": b})
-
-        def fetcher():
-            """Wait for the device->host transfer off the consumer thread, so
-            batch i's wait overlaps batch i-1's (CPU-bound) encode."""
-            b = 0
-            try:
-                while True:
-                    item = get_from(q, "fetcher_idle_s",
-                                    {"stream": seq, "batch": b})
-                    if item is None:
-                        return
-                    if item is stop or isinstance(item, BaseException):
-                        put_to(q2, item, "fetcher_blocked_s",
-                               {"stream": seq, "batch": b})
-                        return
-                    ids, chunk, payloads, splices, prepped, pending = item
-                    parts = None
-                    if pending is not None:
-                        with tracing.timed(stats, "fetch_s",
-                                           "mjt.stream.fetch", **ids):
-                            parts = self._unpack_regions(pending)
-                        # the device spans' end events have been waited on
-                        steps = [p[5].device_ms for p in pending[0]
-                                 if p[5] is not None]
-                        if steps:
-                            stats["device_step_s"] = (
-                                stats.get("device_step_s", 0.0)
-                                + sum(steps) * 1e-3)
-                    if not put_to(q2, (ids, chunk, payloads, splices,
-                                       prepped, parts),
-                                  "fetcher_blocked_s", ids):
-                        return
-                    b += 1
-            except BaseException as e:
-                put_to(q2, e, "fetcher_blocked_s",
-                       {"stream": seq, "batch": b})
-
-        def graft_full(i, composed):
-            """Full decode of file i with the composed footprint grafted in,
-            re-encoded with fresh tables."""
-            full_im = codec.decode(chunk[i], max_pixel=max_pixel, nthreads=1)
-            for c, (r0, c0, h, w) in enumerate(origins):
-                full_im.coefs[c][r0:r0 + h, c0:c0 + w] = composed[c]
-            return codec.encode(full_im, options=options,
-                                restart_interval=restart_interval)
-
-        def enc_one(i):
-            if payloads[i] is not None:
-                try:
-                    with tracing.span("mjt.stream.surgical_reencode",
-                                      stream=seq, batch=ids["batch"],
-                                      file=ids["file"] + i):
-                        return plan.reencode(chunk[i], payloads[i],
-                                             prepped[i])
-                except codec.EncodeError:
-                    # the original (optimized) tables lack a code the
-                    # composed segment now needs: redo on the full path,
-                    # which the surgical counters then leave out
-                    payloads[i] = None
-                    fallback("surgical: original tables lack a needed "
-                             "symbol")
-                    return graft_full(i, plan.gather(prepped[i]))
-            if splices[i] is not None:
-                try:
-                    return codec.encode_splice_band(
-                        chunk[i], prepped[i], splice_band[0],
-                        splice_band[1], splices[i])
-                except codec.EncodeError as e:
-                    # same hazard for the band splice, which must keep the
-                    # original tables for bit-identity; any other encode
-                    # error is counted under its own message
-                    fallback("splice: original tables lack a needed symbol"
-                             if "has no Huffman code" in str(e)
-                             else f"splice: {e}")
-                    return graft_full(
-                        i, [prepped[i].coefs[c][r0:r0 + h, c0:c0 + w]
-                            for c, (r0, c0, h, w) in enumerate(origins)])
-            return codec.encode(prepped[i], options=options,
-                                restart_interval=restart_interval)
-
-        def enc_task(i):
-            c0 = time.thread_time()
-            out = enc_one(i)
-            return out, time.thread_time() - c0
+                item = e
+            forward(dst, item, blocked_key, b)
 
         with tracing.timed(stats, "start_s", "mjt.stream.start", stream=seq):
             own_pool = pool is None
@@ -823,11 +830,17 @@ class BatchComposer:
             q: queue.Queue = queue.Queue(
                 maxsize=max(1, lookahead - lookahead // 2))
             q2: queue.Queue = queue.Queue(maxsize=max(1, lookahead // 2))
-            plan, splice_band = self._stream_route(surgical, options,
-                                                   restart_interval)
-            origins = None if self.noop else self._region_origins()
-            threads = [threading.Thread(target=f, daemon=True)
-                       for f in (producer, dispatcher, fetcher)]
+            route = self._stream_route(surgical, options, restart_interval,
+                                       max_pixel)
+            threads = [
+                threading.Thread(target=producer, daemon=True),
+                # pack + host->device dispatch off the decode thread, so
+                # batch i's upload overlaps batch i+1's decode
+                threading.Thread(target=relay, daemon=True, args=(
+                    q0, q, dispatch, "dispatcher_idle_s",
+                    "dispatcher_blocked_s")),
+                threading.Thread(target=relay, daemon=True, args=(
+                    q, q2, fetch, "fetcher_idle_s", "fetcher_blocked_s"))]
             for th in threads:
                 th.start()
         try:
@@ -840,37 +853,25 @@ class BatchComposer:
                     break
                 if isinstance(item, BaseException):
                     raise item
-                ids, chunk, payloads, splices, prepped, parts = item
+                ids, files, parts = item
                 stats["batches"] += 1
                 if parts is not None:
                     with tracing.timed(stats, "scatter_s",
                                        "mjt.stream.scatter", **ids):
-                        for i in range(len(chunk)):
-                            regions_i = [p[i] for p in parts]
-                            if payloads[i] is not None:
-                                plan.scatter(prepped[i], regions_i)
-                            else:
-                                im = prepped[i]
-                                for c, (r0, c0, h, w) in enumerate(origins):
-                                    im.coefs[c][r0:r0 + h, c0:c0 + w] = \
-                                        regions_i[c]
+                        for i, f in enumerate(files):
+                            f.scatter([p[i] for p in parts])
                 outs = None
-                for i in range(len(chunk)):
+                for f in files:
                     # timed up to each output, so the caller's time at the
                     # yield is not counted
                     with tracing.timed(stats, "encode_s",
-                                       "mjt.stream.encode", stream=seq,
-                                       batch=ids["batch"],
-                                       file=ids["file"] + i):
+                                       "mjt.stream.encode", **f.ids):
                         if outs is None:
-                            outs = pool.map(enc_task, range(len(chunk)))
+                            outs = pool.map(cpu_timed(lambda g: g.encode()),
+                                            files)
                         out, cpu = next(outs)
                     stats["encode_cpu_s"] += cpu
-                    if payloads[i] is not None:     # a surgical answer
-                        stats["surgical_reencode_cpu_s"] += cpu
-                        stats["surgical_recoded_bytes"] += sum(
-                            e - s for s, e in payloads[i][1])
-                        stats["surgical_entropy_bytes"] += payloads[i][5]
+                    f.encoded(stats, cpu)
                     yield out
         finally:
             with tracing.timed(stats, "stop_s", "mjt.stream.stop",
@@ -903,7 +904,7 @@ class BatchComposer:
         returns the batches."""
         if self.noop:
             return list(comp_batches)
-        for c, (r0, c0, h, w) in enumerate(self._region_origins()):
+        for c, (r0, c0, h, w) in enumerate(self._origins):
             grids = comp_batches[c]
             slabs = (grids.slabs if isinstance(grids, ShardedRows)
                      else [grids])

@@ -129,39 +129,23 @@ def _compose_rows(grid: ShardedRows, dropon: torch.Tensor,
 
 def _compiled_footprints(img: CoefImage, dropon, align: int, offset_x: int,
                          offset_y: int, device, compiled=None):
-    """Placement and compile of a dropon against ``img`` on ``device``.
+    """Placement and compile of a dropon against ``img`` on ``device``
+    (composer._place_dropon).
 
     Returns (footprints, host_bytes).  ``footprints`` is None when the
     placement is a no-op, else per component (row0, col0, dropon,
-    mask_pix), the last two [h, w, 8, 8] float32 on ``device``, compiled
-    there (composer.compile_dropon_device).  ``compiled``: a ready
-    CompiledDropon (a JAX-package one carried over by
-    state.from_reference) to use instead, copied up from the host.
-    ``host_bytes``: the bytes of the compiled dropon that passed through
-    host memory, 0 when it was compiled on ``device``.
+    mask_pix), the last two [h, w, 8, 8] float32 on ``device``.
     """
-    from ..composer import compile_dropon_device, plan_placement
-    from ..state import compiled_dropon_to_torch
+    from ..composer import _place_dropon
 
-    p = plan_placement(img, dropon, align, offset_x, offset_y)
-    if p.noop:
+    placed = _place_dropon(img, dropon, align, offset_x, offset_y, device,
+                           compiled)
+    if placed is None:
         return None, 0
-    if compiled is None:
-        dd = compile_dropon_device(dropon, img, p.blockoffset_x,
-                                   p.blockoffset_y, p.crop_x, p.crop_y,
-                                   p.crop_w, p.crop_h, device=device)
-        host_bytes = 0
-    else:
-        dd = compiled_dropon_to_torch(compiled, device)
-        host_bytes = sum(t.numel() * t.element_size()
-                         for t in dd.drops + dd.masks)
-    out = []
-    for c, (h, w) in enumerate(dd.shapes):
-        ci = img.components[c]
-        out.append((p.block_y * ci.v_samp, p.block_x * ci.h_samp,
-                    dd.drops[c].reshape(h, w, 8, 8),
-                    dd.masks[c].reshape(h, w, 8, 8)))
-    return out, host_bytes
+    _, dd, origins, host_bytes = placed
+    return [(r0, c0, dd.drops[c].reshape(h, w, 8, 8),
+             dd.masks[c].reshape(h, w, 8, 8))
+            for c, (r0, c0, h, w) in enumerate(origins)], host_bytes
 
 
 def compose_sharded(img: CoefImage, dropon, align: int, offset_x: int,

@@ -17,6 +17,7 @@ import libmodjpeg_tpu as mj
 from libmodjpeg_tpu import codec
 from libmodjpeg_tpu.encode_pixels import from_pixels
 from libmodjpeg_tpu.parallel import batch as jbatch
+from libmodjpeg_tpu_torch import composer
 from libmodjpeg_tpu_torch.parallel import batch as tbatch
 from libmodjpeg_tpu_torch.state import from_reference
 
@@ -346,9 +347,13 @@ def test_stream_split_over_mesh_bytes_identical(corpora, dropon, corpus):
         datas = [codec.encode(im) for im in _heavy_images(13)]
         place, cap = (mj.ALIGN_TOP | mj.ALIGN_LEFT, 0, 0), 8
     tmpl = codec.decode(datas[0])
+    p = composer.plan_placement(tmpl, dropon, *place)
+    cd = composer.compile_dropon(dropon, tmpl, p.blockoffset_x,
+                                 p.blockoffset_y, p.crop_x, p.crop_y,
+                                 p.crop_w, p.crop_h, device="cpu")
     one = tbatch.BatchComposer(tmpl, dropon, *place, device="cpu")
     split = tbatch.BatchComposer(tmpl, dropon, *place, _mesh8(),
-                                 compiled=one.cd)
+                                 compiled=cd)
     one._down_cap = split._down_cap = cap
     want = list(one.watermark_stream(iter(datas), batch=13,
                                      surgical=False))
@@ -359,3 +364,76 @@ def test_stream_split_over_mesh_bytes_identical(corpora, dropon, corpus):
     assert got == want
     if corpus == "heavy":
         assert split._down_cap > 8
+
+
+# -- the stream's stage threads: closing and errors --------------------------
+
+def _record_threads(monkeypatch) -> list:
+    """Every thread started from now on, in start order."""
+    import threading
+
+    started, start = [], threading.Thread.start
+
+    def recording_start(self):
+        started.append(self)
+        start(self)
+
+    monkeypatch.setattr(threading.Thread, "start", recording_start)
+    return started
+
+
+def _stage_threads(started) -> list:
+    """The stream's producer, dispatcher and fetcher among ``started`` (the
+    pool's workers left out)."""
+    stages = [t for t in started
+              if not t.name.startswith("ThreadPoolExecutor")]
+    assert len(stages) == 3, stages
+    return stages
+
+
+@pytest.mark.parametrize("path", ["splice", "surgical", "full"])
+def test_closing_a_stream_ends_its_threads(corpora, dropon, path,
+                                           monkeypatch):
+    """A stream closed after its first output, with batches still queued,
+    ends its producer, dispatcher and fetcher."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    datas, kwargs = _path_setup(corpora["synthetic512"], path)
+    bc = tbatch.BatchComposer(from_reference(codec.decode(datas[0])),
+                              from_reference(dropon), *_PLACE, device="cpu")
+    with ThreadPoolExecutor(2) as pool:
+        started = _record_threads(monkeypatch)
+        stream = bc.watermark_stream(iter(datas), batch=1, pool=pool,
+                                     **kwargs)
+        assert next(stream)[:2] == b"\xff\xd8"
+        assert bc.last_stream_path == path
+        stages = _stage_threads(started)
+        stream.close()
+    assert not [t for t in stages if t.is_alive()]
+    assert bc.last_stream_stats["batches"] == 1
+
+
+@pytest.mark.parametrize("stage", ["decode", "dispatch", "fetch"])
+def test_a_stage_error_reaches_the_caller(corpora, dropon, stage,
+                                          monkeypatch):
+    """An error raised in the producer's decode, the dispatcher's pack or
+    the fetcher's unpack is raised by the stream to its caller, and the
+    stage threads end."""
+    from libmodjpeg_tpu_torch import codec as tcodec
+
+    datas = corpora["synthetic512"]
+    bc = tbatch.BatchComposer(from_reference(codec.decode(datas[0])),
+                              from_reference(dropon), *_PLACE, device="cpu")
+
+    def fail(*args, **kwargs):
+        raise RuntimeError(f"{stage} failed")
+
+    if stage == "decode":
+        monkeypatch.setattr(tcodec, "decode", fail)
+    else:
+        monkeypatch.setattr(bc, {"dispatch": "_pack_regions",
+                                 "fetch": "_unpack_regions"}[stage], fail)
+    started = _record_threads(monkeypatch)
+    with pytest.raises(RuntimeError, match=f"^{stage} failed$"):
+        list(bc.watermark_stream(iter(datas), batch=1, surgical=False))
+    assert not [t for t in _stage_threads(started) if t.is_alive()]
