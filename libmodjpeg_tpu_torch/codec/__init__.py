@@ -3,8 +3,11 @@ entropy codec).
 
 The native library is the package's only non-Python host component: a
 from-scratch T.81 entropy codec whose sources under native/ are the JAX
-package's, copied (two comments differ: they named a checkout path of the
-reference library).  It is built with g++ at first use into
+package's, copied, with the port's own additions: the band decode's phase
+times, and the clearing of caller planes that hold stale data by the
+frame's first scan, block by block where that scan writes every padded
+block (``Decoder::handle_scan``; the JAX package's copy only ever
+receives zeroed planes).  It is built with g++ at first use into
 ``build/torch_codec/`` at the repository root, under a file name that
 carries a hash of the sources and flags, and loaded once per process.  The
 JAX package's own library is never loaded.  A fix to the codec goes to the
@@ -255,15 +258,48 @@ def _available_ram_bytes():
     return None
 
 
-def _decode(data: bytes, nthreads: int, max_pixel: int, finish):
+# planes of a full decode() at least this large may be page-locked (_planes)
+_PINNED_MIN_BYTES = 32 << 20
+
+
+def _planes(components, data_len: int, may_pin: bool):
+    """The coefficient planes the entropy decoder writes into, and whether
+    they are known to be zero (the native ``prezeroed``).
+
+    np.zeros -> calloc: zero pages stay unmapped until a scan writes them
+    (tiny crafted files can claim enormous frames).  With ``may_pin`` (a
+    full decode), planes of at least 32 MiB in all are page-locked torch
+    tensors instead, handed on as their numpy views, when the process
+    already holds a CUDA context (this never starts one) and the file is
+    long enough to fill them: a Huffman block costs at least 2 bits, so
+    a file of n bytes fills at most 512 * n bytes of planes.  They come
+    from torch's caching host allocator: the decoder's threads write
+    resident pages, a copy to the card is one DMA, and a frame's blocks,
+    once its image is dropped, serve the next frame of its size.  They
+    hold an earlier frame's coefficients, which the decoder clears."""
+    shapes = [(c.padded_height_in_blocks, c.padded_width_in_blocks, 8, 8)
+              for c in components]
+    nbytes = sum(h * w * 128 for h, w, _, _ in shapes)
+    if may_pin and _PINNED_MIN_BYTES <= nbytes <= 512 * data_len:
+        import torch
+
+        if torch.cuda.is_initialized():
+            return [torch.empty(s, dtype=torch.int16, pin_memory=True)
+                    .numpy() for s in shapes], False
+    return [np.zeros(s, dtype=np.int16) for s in shapes], True
+
+
+def _decode(data: bytes, nthreads: int, max_pixel: int, finish,
+            may_pin: bool = False):
     """The native decode of ``data`` around ``finish(lib, handle, ptrs,
-    errbuf)``, the call that entropy-decodes into the planes; returns
-    (CoefImage, what ``finish`` returned).
+    prezeroed, errbuf)``, the call that entropy-decodes into the planes;
+    returns (CoefImage, what ``finish`` returned).
 
     Two-phase zero-copy: the native decoder parses the frame header, we
-    allocate the numpy coefficient planes, and the entropy decoder writes
-    into them directly.  max_pixel > 0 aborts at the frame header before any
-    entropy decoding (the reference's anti-DoS guard, image.c:79-82).
+    allocate the coefficient planes (_planes; ``may_pin`` lets them be
+    page-locked), and the entropy decoder writes into them directly.
+    max_pixel > 0 aborts at the frame header before any entropy decoding
+    (the reference's anti-DoS guard, image.c:79-82).
     """
     lib = _load()
     errbuf = ctypes.create_string_buffer(512)
@@ -303,14 +339,10 @@ def _decode(data: bytes, nthreads: int, max_pixel: int, finish):
                 "build holds planes dense in RAM (no libjpeg-style "
                 "virtual-array spill) — set max_pixel to bound inputs, "
                 "or split the image (docs/SCALING.md)")
-        # np.zeros -> calloc: zero pages stay unmapped until a scan writes
-        # them (tiny crafted files can claim enormous frames)
-        coefs = [np.zeros((c.padded_height_in_blocks,
-                           c.padded_width_in_blocks, 8, 8), dtype=np.int16)
-                 for c in components]
+        coefs, prezeroed = _planes(components, len(data), may_pin)
         ptrs = (ctypes.c_void_p * max(ncomps, 1))(
             *[a.ctypes.data_as(ctypes.c_void_p).value for a in coefs])
-        finished = finish(lib, handle, ptrs, errbuf)
+        finished = finish(lib, handle, ptrs, int(prezeroed), errbuf)
 
         quant_tables = {}
         for t in range(4):
@@ -347,12 +379,14 @@ def _decode(data: bytes, nthreads: int, max_pixel: int, finish):
 
 def decode(data: bytes, nthreads: int = 0, max_pixel: int = 0) -> CoefImage:
     """Decode a JPEG bitstream into a CoefImage (coefficients + metadata),
-    every MCU of it (see _decode)."""
-    def finish(lib, handle, ptrs, errbuf):
-        if lib.mjt_decode_finish(handle, ptrs, 1, errbuf, len(errbuf)) != 0:
+    every MCU of it (see _decode; large planes may be page-locked,
+    _planes)."""
+    def finish(lib, handle, ptrs, prezeroed, errbuf):
+        if lib.mjt_decode_finish(handle, ptrs, prezeroed, errbuf,
+                                 len(errbuf)) != 0:
             raise DecodeError(errbuf.value.decode("utf-8", "replace"))
 
-    return _decode(data, nthreads, max_pixel, finish)[0]
+    return _decode(data, nthreads, max_pixel, finish, may_pin=True)[0]
 
 
 class SpliceIneligible(Exception):
@@ -379,9 +413,9 @@ def decode_band(data: bytes, row0: int, row1: int, max_pixel: int = 0):
     walk); encode_splice_band reads only band_splice[:13].
     row1 < 0 means "to the bottom" (the decode_tail shape).  Raises
     SpliceIneligible outside the envelope."""
-    def band(lib, handle, ptrs, errbuf):
+    def band(lib, handle, ptrs, prezeroed, errbuf):
         splice = (ctypes.c_int64 * 16)()
-        rc = lib.mjt_decode_band(handle, row0, row1, ptrs, 1, splice,
+        rc = lib.mjt_decode_band(handle, row0, row1, ptrs, prezeroed, splice,
                                  errbuf, len(errbuf))
         if rc != 0:
             msg = errbuf.value.decode("utf-8", "replace")

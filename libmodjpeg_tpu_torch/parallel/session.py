@@ -8,7 +8,8 @@ Huffman-optimize statistics are computed from the resident grids.
 
 While tracing is on (``tracing``) each step is a span with the session's
 id: ``mjt.grid.effect`` and ``mjt.grid.compose`` are device spans on the
-session's first device, ``mjt.grid.compile`` (the logo's placement and
+session's first device, ``mjt.grid.upload`` (with the byte counts of
+``last_upload``), ``mjt.grid.compile`` (the logo's placement and
 compile, with the counts of ``last_compile``), ``mjt.grid.to_image``
 (with the byte counts of ``last_to_image``) and ``mjt.grid.encode`` host
 spans.
@@ -34,6 +35,17 @@ from .mesh import Mesh, ShardedRows
 _SESSIONS = itertools.count()  # the ``session`` id of each GridSession
 
 
+def _copied_pinned(plane, devices) -> bool:
+    """Whether ``plane`` goes up to ``devices`` (a row slab each) straight
+    from page-locked memory: every device a card, rows that split evenly
+    (shard_rows stages padding rows through a new tensor) and a page-locked
+    plane, asked last, since asking a host plane is_pinned() would start a
+    CUDA context."""
+    return (all(d.type == "cuda" for d in devices)
+            and plane.shape[0] % len(devices) == 0
+            and torch.from_numpy(plane).is_pinned())
+
+
 def _require_device(device: torch.device) -> torch.device:
     """Raise, rather than run elsewhere, when a CUDA device was asked for
     and none is visible."""
@@ -46,6 +58,12 @@ def _require_device(device: torch.device) -> torch.device:
 class GridSession:
     """Holds one image's component grids on ``device``, or split over the
     rows of ``mesh`` (whose devices then replace ``device``).
+
+    ``last_upload`` counts the copy up: ``bytes`` of the image's planes, of
+    them ``pinned_bytes`` copied to the cards straight from page-locked
+    memory (``pinned_bytes / bytes``: how often the pinned copy engages;
+    codec.decode gives a large frame such planes); while tracing is on the
+    ``mjt.grid.upload`` span carries both as ids.
 
     Usage::
 
@@ -62,19 +80,26 @@ class GridSession:
         self._ids = {"session": next(_SESSIONS)}
         self.last_to_image: Optional[dict] = None
         self.last_compile: Optional[dict] = None
-        if mesh is None:
-            self.device = _require_device(torch.device(device))
-            # one slab: the whole grid on the device, no padding
-            self.grids = [ShardedRows([torch.from_numpy(a).to(
-                self.device, copy=True)], a.shape[0]) for a in img.coefs]
-        else:
-            for d in mesh.device_list:
-                _require_device(d)
-            self.device = mesh.device_list[0]
-            # block-row axis padded to the mesh multiple (zero blocks are
-            # inert under every effect, and compose never writes past the
-            # real rows), so any image geometry splits over any mesh
-            self.grids = [_shard_grid(mesh, a) for a in img.coefs]
+        with tracing.span("mjt.grid.upload", **self._ids) as sp:
+            if mesh is None:
+                devices = [_require_device(torch.device(device))]
+                # one slab: the whole grid on the device, no padding
+                self.grids = [ShardedRows([torch.from_numpy(a).to(
+                    devices[0], copy=True)], a.shape[0]) for a in img.coefs]
+            else:
+                devices = [_require_device(d) for d in mesh.device_list]
+                # block-row axis padded to the mesh multiple (zero blocks
+                # are inert under every effect, and compose never writes
+                # past the real rows), so any image geometry splits over
+                # any mesh
+                self.grids = [_shard_grid(mesh, a) for a in img.coefs]
+            self.device = devices[0]
+            self.last_upload = {
+                "bytes": sum(a.nbytes for a in img.coefs),
+                "pinned_bytes": sum(a.nbytes for a in img.coefs
+                                    if _copied_pinned(a, devices))}
+            if sp is not None:
+                sp.ids.update(self.last_upload)
 
     def effect(self, name: str, value: int = 0, cb_value: int = 0,
                cr_value: int = 0) -> "GridSession":

@@ -311,6 +311,53 @@ def test_grid_session_on_card_matches_cpu(cuda):
                                 restart_interval=4)
 
 
+def _same_planes(got, want):
+    assert len(got) == len(want)
+    for a, b in zip(got, want):
+        np.testing.assert_array_equal(a, b)
+
+
+def test_large_decode_into_pinned_planes_on_card(cuda, monkeypatch):
+    """With a CUDA context up, codec.decode writes a frame of over 32 MiB of
+    planes into page-locked planes equal to the np.zeros decode's;
+    GridSession copies all of their bytes up pinned, and none of the
+    np.zeros planes'; once the first image is dropped the next decode
+    takes its planes from the host allocator's cache, with no new
+    page-locked allocation (where the installed torch counts them)."""
+    import gc
+
+    from libmodjpeg_tpu_torch import codec
+    from libmodjpeg_tpu_torch.parallel import GridSession
+
+    src = _random_420(17, 256, 208)             # 40,894,464 B of planes
+    data = codec.encode(src, restart_interval=64)
+    torch.zeros(1, device=cuda)
+    img = codec.decode(data)
+    nbytes = sum(a.nbytes for a in img.coefs)
+    assert nbytes == 40894464
+    assert all(torch.from_numpy(a).is_pinned() for a in img.coefs)
+    _same_planes(img.coefs, src.coefs)
+    with monkeypatch.context() as m:
+        m.setattr(torch.cuda, "is_initialized", lambda: False)
+        plain = codec.decode(data)
+    assert not any(torch.from_numpy(a).is_pinned() for a in plain.coefs)
+    _same_planes(img.coefs, plain.coefs)
+    s = GridSession(img, device=cuda)
+    assert s.last_upload == {"bytes": nbytes, "pinned_bytes": nbytes}
+    assert GridSession(plain, device=cuda).last_upload == {
+        "bytes": nbytes, "pinned_bytes": 0}
+    _same_planes(s.to_image().coefs, src.coefs)
+    stats = getattr(torch.cuda, "host_memory_stats", None)
+    del img, s
+    gc.collect()
+    before = stats() if stats else None
+    again = codec.decode(data)
+    assert all(torch.from_numpy(a).is_pinned() for a in again.coefs)
+    _same_planes(again.coefs, src.coefs)
+    if before:                              # torch counts its blocks
+        assert stats()["num_host_alloc"] == before["num_host_alloc"]
+
+
 def test_grid_downlink_on_card_is_pinned_and_owned(cuda):
     """to_image from the card: every plane page-locked, no host copy
     counted, a later session's image (also after the earlier one is freed

@@ -266,6 +266,25 @@ def test_downlink_owns_its_rows(slabs, padded):
     assert out.components[0] is not img.components[0]
 
 
+@pytest.mark.parametrize("mesh", [None, (1, 2), (1, 3)],
+                         ids=["one-device", "mesh1x2", "mesh1x3"])
+def test_upload_counts_its_bytes(base, mesh):
+    """last_upload and the upload span count the planes' bytes; on the CPU
+    none are copied up from page-locked memory (asking would start a CUDA
+    context), whether or not the rows split evenly over the mesh."""
+    img = from_reference(base)
+    with tracing.recording():
+        sess = GridSession(img, None if mesh is None else _mesh(*mesh),
+                           device="cpu")
+    nbytes = sum(a.nbytes for a in img.coefs)
+    assert sess.last_upload == {"bytes": nbytes, "pinned_bytes": 0}
+    sp = [s for s in tracing.spans()[0] if s.name == "mjt.grid.upload"
+          and s.ids["session"] == sess._ids["session"]]
+    assert len(sp) == 1 and sp[0].ids == {**sess._ids, **sess.last_upload}
+    assert not torch.cuda.is_initialized()
+    _assert_same(sess.to_image(), base)
+
+
 def test_grid_session_cuda_without_card_raises(base):
     """No fallback: asking for the card where there is none raises."""
     if torch.cuda.is_available():

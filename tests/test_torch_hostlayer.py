@@ -1,14 +1,18 @@
 """The port's own host layer against the JAX package's, on the CPU: its
 copy of the entropy codec (built by g++ from its own sources) decodes to
-the same coefficients and encodes to the same bytes on every coding path;
-state.from_reference carries every model type across; the port raises its
-own error classes."""
+the same coefficients and encodes to the same bytes on every coding path,
+also into planes that hold stale data, and gives page-locked planes only to
+large frames in a process with a CUDA context; state.from_reference carries
+every model type across; the port raises its own error classes."""
 
 import dataclasses
 import os
+import subprocess
+import sys
 
 import numpy as np
 import pytest
+import torch
 
 import libmodjpeg_tpu as mj
 import libmodjpeg_tpu_torch as mt
@@ -18,7 +22,7 @@ from libmodjpeg_tpu_torch import codec as tcodec
 from libmodjpeg_tpu_torch import model as tmodel
 from libmodjpeg_tpu_torch.state import from_reference
 
-from conftest import FIXTURE_IMAGES
+from conftest import FIXTURE_IMAGES, REPO
 
 # (encode options, restart interval) per coding path
 _PATHS = {"baseline": (0, 0), "optimize": (mt.OPTION_OPTIMIZE, 0),
@@ -122,6 +126,201 @@ def test_band_splice_equals_jax(sources, source):
     full = jcodec.decode(data)
     full.coefs[0][row0 * full.components[0].v_samp:][:2, 1:4, 0, 0] += 3
     _same_coefs(tcodec.decode(tout), full)
+
+
+def _noise_frame(h, w, subsampling, seed, **encode_kw) -> bytes:
+    """Noise pixels coded by the JAX package's encoder."""
+    from libmodjpeg_tpu.encode_pixels import from_pixels
+
+    rng = np.random.RandomState(seed)
+    shape = (h, w) if subsampling == "gray" else (h, w, 3)
+    return jcodec.encode(from_pixels(
+        rng.randint(0, 256, shape).astype(np.uint8), quality=90,
+        subsampling=subsampling), **encode_kw)
+
+
+_SEQ = [((c,), 0, 63, 0, 0) for c in range(3)]
+# (height, width, subsampling, encode keywords, nthreads) per first scan:
+# those that visit every padded block clear block by block, the rest keep
+# one memset before the scan
+_STALE = {
+    "restart64-420": (512, 512, "420", {"restart_interval": 64}, 0),
+    "baseline-420": (768, 1024, "420", {}, 0),        # the self-sync split
+    "baseline-420-serial": (768, 1024, "420", {}, 1),
+    "progressive": (120, 200, "420", {"options": mt.OPTION_PROGRESSIVE}, 0),
+    "arithmetic": (120, 200, "420", {"options": mt.OPTION_ARITHMETRIC}, 0),
+    "non-interleaved": (120, 200, "420", {"scan_script": _SEQ}, 0),
+    "two-of-three": (120, 200, "420",
+                     {"scan_script": [((0, 1), 0, 63, 0, 0), _SEQ[2]]}, 0),
+    "444": (120, 200, "444", {}, 0),
+    "gray": (120, 200, "gray", {}, 0),
+    "odd-size": (203, 331, "420", {"restart_interval": 7}, 0),
+}
+
+
+def _stale_planes(prezeroed):
+    """A stand-in for codec._planes: planes filled with 0x5A5A, as a reused
+    page-locked block holds an earlier frame, said to be zero or not."""
+    def planes(components, data_len, may_pin):
+        return [np.full((c.padded_height_in_blocks,
+                         c.padded_width_in_blocks, 8, 8), 0x5A5A, np.int16)
+                for c in components], prezeroed
+    return planes
+
+
+@pytest.mark.parametrize("case", sorted(_STALE))
+def test_stale_planes_decode_equals_jax(monkeypatch, case):
+    """Planes that hold stale data, handed over with prezeroed=0, decode to
+    the JAX codec's coefficients on every kind of first scan: cleared block
+    by block where it is sequential and interleaved over every component,
+    by one memset before it otherwise.  Said to be zeroed, the same planes
+    keep the fill, so the test's planes do reach the decoder."""
+    h, w, sub, kw, nthreads = _STALE[case]
+    data = _noise_frame(h, w, sub, len(case), **kw)
+    want = jcodec.decode(data)
+    monkeypatch.setattr(tcodec, "_planes", _stale_planes(False))
+    _same_coefs(tcodec.decode(data, nthreads=nthreads), want)
+    monkeypatch.setattr(tcodec, "_planes", _stale_planes(True))
+    kept = tcodec.decode(data, nthreads=nthreads)
+    assert any((a == 0x5A5A).any() for a in kept.coefs)
+
+
+def test_stale_planes_of_a_frame_without_a_scan(monkeypatch):
+    """A frame with no scan decodes to zero planes, also from stale ones."""
+    sof = bytes([0xFF, 0xC0, 0, 17, 8, 0, 40, 0, 56, 3,
+                 1, 0x22, 0, 2, 0x11, 0, 3, 0x11, 0])
+    dqt = bytes([0xFF, 0xDB, 0, 67, 0]) + bytes(range(1, 65))
+    data = b"\xff\xd8" + dqt + sof + b"\xff\xd9"
+    want = jcodec.decode(data)
+    assert not any(a.any() for a in want.coefs)
+    monkeypatch.setattr(tcodec, "_planes", _stale_planes(False))
+    _same_coefs(tcodec.decode(data), want)
+    monkeypatch.setattr(tcodec, "_planes", _stale_planes(True))
+    assert all((a == 0x5A5A).all() for a in tcodec.decode(data).coefs)
+
+
+def _frame_420(width, height, seed, restart_interval=64) -> bytes:
+    """A 4:2:0 frame with random DC and one random AC per block, coded by
+    the port's encoder (at the grid chain's restart interval by default):
+    3 bytes of planes per pixel from a file a few percent of their size."""
+    rng = np.random.RandomState(seed)
+    mw, mh = -(-width // 16), -(-height // 16)
+    comps, coefs = [], []
+    for c, (sh, sv) in enumerate([(2, 2), (1, 1), (1, 1)]):
+        pw, ph = mw * sh, mh * sv
+        a = np.zeros((ph, pw, 8, 8), np.int16)
+        a[..., 0, 0] = rng.randint(-500, 500, (ph, pw))
+        a[..., 0, 1] = rng.randint(-3, 4, (ph, pw))
+        comps.append(tmodel.ComponentInfo(
+            c + 1, sh, sv, int(c > 0), -(-width * sh // 16),
+            -(-height * sv // 16), pw, ph))
+        coefs.append(a)
+    q = np.full((8, 8), 4, np.uint16)
+    return tcodec.encode(tmodel.CoefImage(
+        width=width, height=height, jpeg_color_space=3, components=comps,
+        coefs=coefs, quant_tables={0: q, 1: q},
+        sampling=tmodel.Sampling(2, 2)), restart_interval=restart_interval)
+
+
+def _watch_planes(monkeypatch):
+    """Fake a CUDA context, make a page-locked allocation a pageable one
+    filled with 0x5A5A (a reused block), and record what codec._planes
+    returns: [(bytes, prezeroed, tensor-backed)]."""
+    seen, planes, empty = [], tcodec._planes, torch.empty
+    asked = []
+
+    def fake_empty(*shape, pin_memory=False, **kw):
+        asked.append(pin_memory)
+        return torch.full(*shape, 0x5A5A, **kw)
+
+    def spy(components, data_len, may_pin):
+        out, prezeroed = planes(components, data_len, may_pin)
+        seen.append((sum(a.nbytes for a in out), prezeroed,
+                     all(isinstance(a.base, torch.Tensor) for a in out)))
+        return out, prezeroed
+
+    monkeypatch.setattr(torch.cuda, "is_initialized", lambda: True)
+    monkeypatch.setattr(torch, "empty", fake_empty)
+    monkeypatch.setattr(tcodec, "_planes", spy)
+    return seen, asked
+
+
+def test_large_frame_decodes_into_torch_planes(monkeypatch):
+    """Over 32 MiB of planes, from a file long enough to fill them, in a
+    process that holds a CUDA context (faked), decode() asks torch for
+    page-locked planes (here pageable, holding a stale fill), says they are
+    not zeroed, and gives the np.zeros decode's coefficients; decode_band
+    keeps np.zeros."""
+    data = _frame_420(4096, 2752, 1)
+    band = _frame_420(4096, 2752, 1, restart_interval=0)
+    want = tcodec.decode(data)
+    seen, asked = _watch_planes(monkeypatch)
+    got = tcodec.decode(data)
+    assert seen == [(33816576, False, True)] and asked == [True] * 3
+    _same_coefs(got, want)
+    tcodec.decode_band(band, 0, 1)
+    assert seen[1:] == [(33816576, True, False)] and asked == [True] * 3
+
+
+def test_small_frame_keeps_zeroed_planes(monkeypatch):
+    """1080p planes (6.3 MB) stay np.zeros, said to be zeroed, with a CUDA
+    context up."""
+    data = _frame_420(1920, 1080, 2)
+    want = jcodec.decode(data)
+    seen, asked = _watch_planes(monkeypatch)
+    _same_coefs(tcodec.decode(data), want)
+    assert seen == [(6266880, True, False)] and asked == []
+
+
+def _huge_header() -> bytes:
+    """A few hundred bytes that claim a 65535x65535 4:2:0 frame (12.9 GB of
+    planes) and hold a scan but no Huffman table."""
+    sof = bytes([0xFF, 0xC0, 0, 17, 8, 0xFF, 0xFF, 0xFF, 0xFF, 3,
+                 1, 0x22, 0, 2, 0x11, 0, 3, 0x11, 0])
+    dqt = bytes([0xFF, 0xDB, 0, 67, 0]) + bytes(range(1, 65))
+    sos = bytes([0xFF, 0xDA, 0, 12, 3, 1, 0, 2, 0, 3, 0, 0, 63, 0])
+    return (b"\xff\xd8" + dqt + sof + sos + bytes(range(1, 200))
+            + b"\xff\xd9")
+
+
+def test_crafted_huge_header_keeps_zeroed_planes(monkeypatch):
+    """A tiny file that claims a huge frame gets np.zeros planes (calloc:
+    nothing is touched), not page-locked ones, with a CUDA context up, and
+    raises what the JAX codec raises (the host-RAM guard is off in both, so
+    that the frame reaches the allocation)."""
+    data = _huge_header()
+    assert len(data) < 400
+    monkeypatch.setattr(jcodec, "_available_ram_bytes", lambda: None)
+    monkeypatch.setattr(tcodec, "_available_ram_bytes", lambda: None)
+    with pytest.raises(mj.DecodeError) as want:
+        jcodec.decode(data)
+    seen, asked = _watch_planes(monkeypatch)
+    with pytest.raises(mt.DecodeError) as got:
+        tcodec.decode(data)
+    assert str(got.value) == str(want.value)
+    assert seen == [(8192 * 8192 * 128 + 2 * 4096 * 4096 * 128, True,
+                     False)] and asked == []
+
+
+_NO_CUDA_START = """
+import sys, torch
+from libmodjpeg_tpu_torch import codec
+with open(sys.argv[1], "rb") as f:
+    img = codec.decode(f.read())
+print(sum(a.nbytes for a in img.coefs), torch.cuda.is_initialized(),
+      all(a.base is None for a in img.coefs))
+"""
+
+
+def test_decode_never_starts_cuda(tmp_path):
+    """In a fresh process, decode() of a frame with 40 MB of planes leaves
+    CUDA uninitialised and its planes np.zeros."""
+    path = tmp_path / "frame.jpg"
+    path.write_bytes(_frame_420(4096, 3264, 3))
+    r = subprocess.run([sys.executable, "-c", _NO_CUDA_START, str(path)],
+                       cwd=REPO, capture_output=True, text=True, timeout=300)
+    assert r.returncode == 0, r.stderr
+    assert r.stdout.split() == ["40108032", "False", "True"]
 
 
 def test_optimal_table_builder_equals_jax():
